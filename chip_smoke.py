@@ -1,0 +1,528 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it, phase by phase.
+
+    python3 chip_smoke.py [--report PATH]
+
+1. Card and build: prints the card's name and power limit, builds the CUDA
+   kernels from ``multigriddet_tpu_torch/csrc`` with nvcc for sm_90a.
+2. Kernels against their plain PyTorch versions at the serving shapes
+   (B = 8, N = 7,581 candidates, 80 classes, exact-tie armies): pop-max NMS
+   for (standard, IoU), (standard, IoL), (diou, IoL), all below confidence;
+   greedy NMS at K = 1,024 and K = N, all invalid.  Equal valid masks,
+   order and classes; boxes and scores bit-equal under valid.
+3. Serve: ``MultiGridInference`` from a config dict (multigriddet_darknet,
+   608x608, 80 classes, COCO anchors, bfloat16, seeded random weights
+   through the flax weight bridge, confidence 0 so the pool is full), four
+   batches of eight letterboxed uint8 images for each NMS backend:
+   ``pallas_fused`` (pop-max kernel), ``pallas`` (greedy kernel) and
+   ``xla`` (PyTorch cluster NMS).  Launch counters are zeroed before each
+   backend's run and read after it.
+4. Float32 forward parity: one image through Darknet53 + head on the card
+   (TF32 off) against the same weights on the CPU.
+5. Times, with CUDA events after warm-up.
+
+Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
+line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+line, when there is no GPU or any phase fails.  Needs no YAML, Pillow or
+msgpack, and imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+B, HW, NUM_CLASSES, MAX_BOXES = 8, (608, 608), 80, 100
+N_POOL = sum((HW[0] // s) * (HW[1] // s) for s in (32, 16, 8))   # 7,581
+SERVE_BATCHES = 4
+CONF, THR = 0.05, 0.45
+# H100 SXM data-sheet peaks (dense, 700 W): HBM rate, float32 non-tensor rate
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per (box i, candidate j) pair of the overlap test in
+# csrc/nms.cu (adds, multiplies, divides, min/max, the >= test); the
+# pop-max pass adds 2 for its running argmax
+PAIR_OPS = {('standard', False): 17, ('standard', True): 16,
+            ('diou', False): 38, ('diou', True): 37}
+# forward parity on the card, float32 with TF32 off, against the CPU:
+# different conv algorithms sum in different orders (~1e-6 relative)
+F32_PARITY_RTOL = 1e-4
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def make_pool(dev, seed):
+    """Boxes on a 608 canvas, scores with exact-tie armies, 80 classes."""
+    import numpy as np
+    import torch
+    b, n = B, N_POOL
+    rng = np.random.RandomState(seed)
+    xy = rng.rand(b, n, 2) * 560
+    wh = rng.rand(b, n, 2) * 120 + 4
+    boxes = np.concatenate([xy, wh], -1).astype(np.float32)
+    scores = rng.rand(b, n).astype(np.float32)
+    scores[:, 500:600] = scores[:, 400:500]       # tie armies
+    scores[:, 1000:1300] = scores[:, :1][:, [0] * 300]
+    boxes[:, 2000:2100] = boxes[:, 2100:2200]     # duplicate boxes
+    classes = rng.randint(0, NUM_CLASSES, (b, n)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (boxes, scores,
+                                                       classes))
+
+
+def letterboxed_batches(count, seed):
+    """Synthetic letterboxed uint8 batches: a smooth 608x456 picture (a
+    640x480 frame scaled down) on the gray canvas."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(count):
+        batch = np.full((B, *HW, 3), 128, np.uint8)
+        low = rng.randint(0, 256, (B, 29, 38, 3)).astype(np.uint8)
+        pic = np.repeat(np.repeat(low, 16, axis=1), 16, axis=2)[:, :456, :608]
+        batch[:, 76:76 + 456] = pic
+        out.append(batch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# exact comparison of a kernel with its plain version
+# ---------------------------------------------------------------------------
+
+def compare_popmax(got, want, method, use_iol, label):
+    """Raise unless the two results are equal; returns max |diff| under
+    valid.  On a differing keep decision, prints the pair's overlap."""
+    import torch
+    from multigriddet_tpu_torch.ops.cuda_nms import overlap_rows
+    gb, gc, gs, gv = got
+    wb, wc, ws, wv = want
+    if not torch.equal(gv, wv):
+        bad = torch.nonzero(gv != wv)[0].tolist()
+        b_, i = bad
+        log(f'[{label}] valid differs at image {b_} slot {i}')
+        raise AssertionError(f'{label}: valid masks differ')
+    v = wv
+    if not torch.equal(gc[v], wc[v]) or not torch.equal(gb[v], wb[v]) \
+            or not torch.equal(gs[v], ws[v]):
+        diff = (gb != wb).any(-1) | (gs != ws) | (gc != wc)
+        b_, i = torch.nonzero(diff & v)[0].tolist()
+        for slot in range(i + 1):
+            ov = overlap_rows(wb[b_, slot][None, None], gb[b_, i][None, None],
+                              method, use_iol)[0, 0, 0].item()
+            log(f'[{label}] image {b_}: plain slot {slot} vs kernel slot {i}'
+                f' overlap {ov!r} (threshold {THR!r})')
+        raise AssertionError(f'{label}: detections differ at image {b_} '
+                             f'slot {i}')
+    err = max((gb[v] - wb[v]).abs().max().item() if v.any() else 0.0,
+              (gs[v] - ws[v]).abs().max().item() if v.any() else 0.0)
+    return err
+
+
+def compare_greedy(got, want, boxes, method, use_iol, label):
+    import torch
+    from multigriddet_tpu_torch.ops.cuda_nms import overlap_rows
+    if torch.equal(got, want):
+        return 0.0
+    b_, j = torch.nonzero(got != want)[0].tolist()
+    kept = torch.nonzero(want[b_, :j])[:, 0]
+    ov = overlap_rows(boxes[b_, kept][None], boxes[b_, j][None, None],
+                      method, use_iol)[0, :, 0]
+    worst = int(torch.argmax(ov))
+    log(f'[{label}] image {b_} box {j}: kernel keep {bool(got[b_, j])}, '
+        f'plain keep {bool(want[b_, j])}; largest overlap with an earlier '
+        f'kept box {ov[worst].item()!r} (box {int(kept[worst])}, threshold '
+        f'{THR!r})')
+    raise AssertionError(f'{label}: keep masks differ')
+
+
+# ---------------------------------------------------------------------------
+# work the kernels' data needs (for the bound)
+# ---------------------------------------------------------------------------
+
+def popmax_pairs(boxes, scores, conf, thr, max_boxes, method, use_iol):
+    """Pairs (winner, live candidate) the pop-max steps evaluate."""
+    import torch
+    from multigriddet_tpu_torch.ops.cuda_nms import NEG, overlap_rows
+    b, n = scores.shape
+    s = torch.where(scores >= conf, scores, torch.tensor(NEG,
+                                                         device=scores.device))
+    col = torch.arange(n, device=scores.device)
+    rows = torch.arange(b, device=scores.device)
+    pairs = 0
+    for _ in range(max_boxes):
+        alive = s > NEG / 2
+        cur = s.amax(1)
+        live = cur > NEG / 2
+        if not bool(live.any()):
+            break
+        pairs += int(alive[live].sum())
+        idx = torch.where(s == cur[:, None], col, n).amin(1)
+        ov = overlap_rows(boxes[rows, idx][:, None], boxes, method,
+                          use_iol)[:, 0]
+        sup = ((ov >= thr) | (col == idx[:, None])) & live[:, None]
+        s = torch.where(sup, torch.tensor(NEG, device=s.device), s)
+    return pairs
+
+
+def greedy_pairs(boxes, valid, keep, thr, method, use_iol):
+    """Pairs (kept box i, later box j still kept at step i) the greedy
+    sweep evaluates.  Box j is live at step i up to the first kept box
+    that suppresses it."""
+    import torch
+    from multigriddet_tpu_torch.ops.cuda_nms import overlap_rows
+    k = keep.shape[1]
+    idx = torch.arange(k, device=keep.device)
+    sup = ((overlap_rows(boxes, boxes, method, use_iol) >= thr)
+           & keep[:, :, None] & (idx[:, None] < idx[None, :]))
+    hit = sup.any(1)
+    last = torch.where(hit, sup.int().argmax(1), idx - 1)   # last step
+    kept_upto = torch.cumsum(keep.int(), 1)
+    count = torch.where(last >= 0,
+                        torch.gather(kept_upto, 1, last.clamp_min(0)), 0)
+    return int(count[valid].sum())
+
+
+def bound(bytes_moved, ops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops
+            else 'operations')
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from multigriddet_tpu_torch.ops import kernel_build
+    t0 = time.perf_counter()
+    info = kernel_build.build('nms.cu')
+    log(f'[build] {os.path.relpath(info["path"], REPO)} in '
+        f'{time.perf_counter() - t0:.2f} s (nvcc {info["seconds"]:.2f} s)')
+    for line in info['log'].splitlines():
+        if 'registers' in line or 'Compiling entry' in line:
+            log(f'[build] {line.strip()}')
+    return info
+
+
+def phase_kernels(dev):
+    import torch
+    from multigriddet_tpu_torch.ops import cuda_nms
+    errs = {'popmax_nms': 0.0, 'greedy_nms': 0.0}
+    pool = make_pool(dev, SEED)
+    for method, use_iol in (('standard', False), ('standard', True),
+                            ('diou', True)):
+        label = f'popmax {method} iol={use_iol}'
+        got = cuda_nms.popmax_nms(*pool, CONF, THR, MAX_BOXES, method,
+                                  use_iol)
+        want = cuda_nms.popmax_nms_plain(*pool, CONF, THR, MAX_BOXES,
+                                         method, use_iol)
+        torch.cuda.synchronize()
+        errs['popmax_nms'] = max(errs['popmax_nms'], compare_popmax(
+            got, want, method, use_iol, label))
+        log(f'[kernels] {label}: equal, {int(got[3].sum())} valid of '
+            f'{got[3].numel()}')
+    boxes, scores, classes = pool
+    low = torch.full_like(scores, 0.01)
+    got = cuda_nms.popmax_nms(boxes, low, classes, 0.1, THR, MAX_BOXES)
+    want = cuda_nms.popmax_nms_plain(boxes, low, classes, 0.1, THR,
+                                     MAX_BOXES)
+    torch.cuda.synchronize()
+    if got[3].any() or not bool((got[2] == -1e9).all()):
+        raise AssertionError('popmax: all-below-confidence pool gave output')
+    compare_popmax(got, want, 'diou', True, 'popmax below-confidence')
+    log('[kernels] popmax all below confidence: no valid output, equal')
+
+    order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
+    sorted_boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    sorted_valid = torch.gather(scores, 1, order) >= CONF
+    for k in (1024, N_POOL):
+        bx, va = sorted_boxes[:, :k].contiguous(), sorted_valid[:, :k]
+        va = va.contiguous()
+        for method, use_iol in (('diou', True), ('standard', False)):
+            label = f'greedy k={k} {method} iol={use_iol}'
+            got = cuda_nms.greedy_nms(bx, va, THR, method, use_iol)
+            want = cuda_nms.greedy_nms_plain(bx, va, THR, method, use_iol)
+            torch.cuda.synchronize()
+            compare_greedy(got, want, bx, method, use_iol, label)
+            log(f'[kernels] {label}: equal, {int(got.sum())} kept of '
+                f'{int(va.sum())} valid')
+    none = torch.zeros(B, 256, dtype=torch.bool, device=dev)
+    got = cuda_nms.greedy_nms(sorted_boxes[:, :256].contiguous(), none, THR)
+    torch.cuda.synchronize()
+    if got.any():
+        raise AssertionError('greedy: all-invalid input kept a box')
+    log('[kernels] greedy all invalid: nothing kept')
+    return errs
+
+
+def serve_config(backend):
+    return {
+        'model': {'type': 'preset', 'preset': {
+            'architecture': 'multigriddet_darknet',
+            'num_classes': NUM_CLASSES, 'input_shape': [*HW, 3],
+            'anchors_path': os.path.join(REPO, 'configs',
+                                         'yolov3_coco_anchor.txt')}},
+        'environment': {'mixed_precision': True},
+        'input': {'type': 'image', 'input_shape': [*HW, 3]},
+        'detection': {'confidence_threshold': 0.0, 'nms_threshold': THR,
+                      'nms_method': 'diou', 'use_iol': True,
+                      'max_boxes': MAX_BOXES, 'nms_backend': backend},
+    }
+
+
+def build_engine(backend):
+    from multigriddet_tpu_torch.inference import MultiGridInference
+    from multigriddet_tpu_torch.models import (load_flax_variables,
+                                               random_flax_variables)
+    engine = MultiGridInference(serve_config(backend))
+    load_flax_variables(engine.model,
+                        *random_flax_variables(engine.model, seed=SEED))
+    return engine
+
+
+def phase_serve(batches):
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.training.steps import (candidate_pool,
+                                                       fetch_detections)
+    engines, launches, results = {}, {}, {}
+    for backend in ('pallas_fused', 'pallas', 'xla'):
+        engine = engines[backend] = build_engine(backend)
+        cuda_nms.popmax_nms.launches = 0
+        cuda_nms.greedy_nms.launches = 0
+        outs = [engine.infer_batch(b) for b in batches]
+        torch.cuda.synchronize()
+        launches[backend] = {'popmax_nms': cuda_nms.popmax_nms.launches,
+                             'greedy_nms': cuda_nms.greedy_nms.launches}
+        results[backend] = [fetch_detections(o) for o in outs]
+        log(f'[serve] {backend}: {len(batches)} batches of {B}, launches '
+            f'{launches[backend]}, valid per image '
+            f'{[int(v.sum()) for v in results[backend][0][3]]}')
+    want = {'pallas_fused': {'popmax_nms': len(batches), 'greedy_nms': 0},
+            'pallas': {'popmax_nms': 0, 'greedy_nms': len(batches)},
+            'xla': {'popmax_nms': 0, 'greedy_nms': 0}}
+    if launches != want:
+        raise AssertionError(f'kernel launches {launches}, expected {want}')
+    for backend, res in results.items():
+        for bx, cl, sc, va in res:
+            if not (va.sum(1) >= 1).all():
+                raise AssertionError(f'{backend}: an image has no detection')
+            if not (np.isfinite(bx[va]).all() and np.isfinite(sc[va]).all()
+                    and (sc[va] >= 0).all() and (sc[va] <= 1).all()):
+                raise AssertionError(f'{backend}: detections out of range')
+            if not ((cl[va] >= 0) & (cl[va] < NUM_CLASSES)).all():
+                raise AssertionError(f'{backend}: class id out of range')
+
+    # the served pop-max result equals the plain version on the same pool
+    engine = engines['pallas_fused']
+    with torch.inference_mode():
+        x = torch.from_numpy(batches[0]).cuda().float() / 255.0
+        pool = candidate_pool(engine.model, x, engine.spec['anchors'], HW)
+        plain = cuda_nms.popmax_nms_plain(*pool, 0.0, THR, MAX_BOXES, 'diou',
+                                          True)
+    served = results['pallas_fused'][0]
+    for name, a, b in zip(('boxes', 'classes', 'scores', 'valid'), served,
+                          (t.cpu().numpy() for t in plain)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f'served {name} differ from the plain '
+                                 f'pop-max on the same pool')
+    agree = float(np.mean(results['pallas'][0][3] == results['xla'][0][3]))
+    log(f'[serve] pallas_fused == plain pop-max on batch 0; pallas vs xla '
+        f'valid agreement {agree:.4f}')
+    return engines, launches, pool
+
+
+def phase_f32_parity(engine, batch):
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.models import create_model
+    model = create_model('multigriddet_darknet', num_anchors=(3, 3, 3),
+                         num_classes=NUM_CLASSES, dtype=torch.float32)
+    model.load_state_dict(engine.model.state_dict())
+    x = torch.from_numpy(batch[:1]).float() / 255.0
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = [t.numpy() for t in model(x)]
+            got = [t.cpu().numpy() for t in model.cuda()(x.cuda())]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    worst = 0.0
+    for r, g in zip(ref, got):
+        if r.shape != g.shape or not np.isfinite(g).all():
+            raise AssertionError('f32 forward: bad shape or non-finite')
+        scale = max(1.0, float(np.abs(r).max()))
+        err = float(np.abs(r - g).max())
+        worst = max(worst, err / scale)
+        if err > F32_PARITY_RTOL * scale:
+            raise AssertionError(f'f32 forward differs from the CPU: max '
+                                 f'|diff| {err} > {F32_PARITY_RTOL} x {scale}')
+    log(f'[f32] card vs CPU logits: max |diff| / max(1, max |ref|) = '
+        f'{worst:.3e} (limit {F32_PARITY_RTOL})')
+    return worst
+
+
+def phase_times(engines, batches, pool):
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.ops.decode import decode_for_nms
+    from multigriddet_tpu_torch.training.steps import fetch_detections
+    engine = engines['pallas_fused']
+    times = {}
+    x_dev = torch.from_numpy(batches[0]).cuda()
+    times['step_ms'] = cuda_ms(lambda: engine.infer_batch(x_dev), 20, 3)
+    xf = x_dev.float() / 255.0
+    with torch.inference_mode():
+        times['forward_ms'] = cuda_ms(lambda: engine.model(xf), 20, 3)
+        outs = engine.model(xf)
+        times['decode_ms'] = cuda_ms(lambda: decode_for_nms(
+            outs, engine.spec['anchors'], HW), 20, 3)
+    lat = []
+    for i in range(3 + 20):
+        t0 = time.perf_counter()
+        fetch_detections(engine.infer_batch(batches[i % len(batches)]))
+        lat.append(time.perf_counter() - t0)
+    lat = np.asarray(lat[3:]) * 1e3
+    times['latency_ms_mean'] = float(lat.mean())
+    times['latency_ms_p50'] = float(np.percentile(lat, 50))
+    times['latency_ms_p90'] = float(np.percentile(lat, 90))
+    times['img_per_s'] = float(B / (lat.mean() / 1e3))
+    times['device_img_per_s'] = B / (times['step_ms'] / 1e3)
+    log(f'[times] b{B} @{HW[0]} bf16: fused step {times["step_ms"]:.3f} ms '
+        f'on the card (forward {times["forward_ms"]:.3f}, decode '
+        f'{times["decode_ms"]:.3f}); host-to-host latency mean '
+        f'{times["latency_ms_mean"]:.3f} ms, p90 {times["latency_ms_p90"]:.3f}'
+        f' ms; {times["img_per_s"]:.1f} img/s')
+
+    kernels = []
+    # pop-max on the served pool (confidence 0: the whole pool is live)
+    boxes, scores, classes = pool
+    args = (boxes, scores, classes, 0.0, THR, MAX_BOXES, 'diou', True)
+    ms = cuda_ms(lambda: cuda_nms.popmax_nms(*args), 20, 3)
+    plain_ms = cuda_ms(lambda: cuda_nms.popmax_nms_plain(*args), 3, 1)
+    n = boxes.shape[1]
+    moved = B * n * (16 + 4 + 4) + B * MAX_BOXES * (16 + 4 + 4 + 1)
+    pairs = popmax_pairs(boxes, scores, 0.0, THR, MAX_BOXES, 'diou', True)
+    ops = pairs * (PAIR_OPS[('diou', True)] + 2) + B * n * 3
+    bms, by = bound(moved, ops)
+    kernels.append({'name': 'popmax_nms', 'ms': ms, 'plain_ms': plain_ms,
+                    'bound_ms': bms, 'bound_by': by, 'pairs': pairs})
+    # greedy on what the `pallas` backend hands it: the top 1,024 of the
+    # same pool, sorted by score
+    k = min(1024, n)
+    order = torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :k]
+    bx = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    bx = bx.contiguous()
+    va = torch.ones(B, k, dtype=torch.bool, device=bx.device)
+    ms = cuda_ms(lambda: cuda_nms.greedy_nms(bx, va, THR, 'diou', True), 20, 3)
+    plain_ms = cuda_ms(lambda: cuda_nms.greedy_nms_plain(bx, va, THR, 'diou',
+                                                         True), 3, 1)
+    keep = cuda_nms.greedy_nms(bx, va, THR, 'diou', True)
+    pairs = greedy_pairs(bx, va, keep, THR, 'diou', True)
+    moved = B * k * (16 + 1 + 1)
+    bms, by = bound(moved, pairs * (PAIR_OPS[('diou', True)]))
+    kernels.append({'name': 'greedy_nms', 'ms': ms, 'plain_ms': plain_ms,
+                    'bound_ms': bms, 'bound_by': by, 'pairs': pairs})
+    for k in kernels:
+        log(f'[times] {k["name"]}: {k["ms"]:.4f} ms, plain {k["plain_ms"]:.3f}'
+            f' ms, bound {k["bound_ms"]:.5f} ms ({k["bound_by"]}, '
+            f'{k["pairs"]} pairs)')
+    return times, kernels
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument('--report', default=None,
+                   help='also write every measured number to this JSON file')
+    args = p.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device available', file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    import multigriddet_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    smi = smi_line()
+    log(f'[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}')
+    t_start = time.perf_counter()
+    build = phase_build()
+    errs = phase_kernels(torch.device('cuda'))
+    batches = letterboxed_batches(SERVE_BATCHES, SEED)
+    engines, launches, pool = phase_serve(batches)
+    f32_err = phase_f32_parity(engines['pallas_fused'], batches[0])
+    times, ktimes = phase_times(engines, batches, pool)
+
+    src = 'multigriddet_tpu_torch/csrc/nms.cu'
+    replaces = {'popmax_nms': 'multigriddet_tpu/ops/pallas_nms.py:115',
+                'greedy_nms': 'multigriddet_tpu/ops/pallas_nms.py:34'}
+    path_of = {'popmax_nms': 'pallas_fused', 'greedy_nms': 'pallas'}
+    kernels = [{'name': k['name'], 'route': 'cuda', 'source': src,
+                'replaces': replaces[k['name']],
+                'launches': launches[path_of[k['name']]][k['name']],
+                'max_abs_err': errs[k['name']], 'ms': k['ms'],
+                'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+                'bound_by': k['bound_by'], 'library_ms': None}
+               for k in ktimes]
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
+                    exist_ok=True)
+        with open(args.report, 'w') as f:
+            json.dump({'card': smi, 'torch': torch.__version__,
+                       'cuda': torch.version.cuda,
+                       'build_seconds': build['seconds'],
+                       'serve': times, 'launches': launches,
+                       'f32_parity_rel_err': f32_err, 'kernels': kernels,
+                       'kernel_pairs': {k['name']: k['pairs']
+                                        for k in ktimes},
+                       'seconds': time.perf_counter() - t_start}, f,
+                      indent=1)
+    print(json.dumps({'kernels': kernels}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

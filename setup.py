@@ -9,7 +9,9 @@ setup(
     description=('TPU-native JAX implementation of MultiGridDet: '
                  'multi-grid redundant assignment one-stage detection'),
     packages=find_packages(include=['multigriddet_tpu',
-                                    'multigriddet_tpu.*']),
+                                    'multigriddet_tpu.*',
+                                    'multigriddet_tpu_torch',
+                                    'multigriddet_tpu_torch.*']),
     py_modules=['train', 'infer', 'eval'],
     python_requires='>=3.10',
     install_requires=[
