@@ -7,9 +7,14 @@
    kernels from ``multigriddet_tpu_torch/csrc`` with nvcc for sm_90a.
 2. Kernels against their plain PyTorch versions at the serving shapes
    (B = 8, N = 7,581 candidates, 80 classes, exact-tie armies): pop-max NMS
-   for (standard, IoU), (standard, IoL), (diou, IoL), all below confidence;
-   greedy NMS at K = 1,024 and K = N, all invalid.  Equal valid masks,
-   order and classes; boxes and scores bit-equal under valid.
+   for (standard, IoU), (standard, IoL), (diou, IoL), all below confidence,
+   pools of N = 63 and 65 (exhausted: more slots than survivors), N = 9,261
+   (the @672 pool), an army of 1,000 identical boxes at the top of the
+   order, 3,000 equal top scores, filtered scores in (NEG, NEG/2] that the
+   tail repeats, and a pool above the kernel's capacity (must raise);
+   greedy NMS at K = 64 (with valid holes), 1,024 and K = N, all invalid.
+   Equal valid masks, order and classes; boxes and scores bit-equal, tail
+   slots included.
 3. Serve: ``MultiGridInference`` from a config dict (multigriddet_darknet,
    608x608, 80 classes, COCO anchors, bfloat16, seeded random weights
    through the flax weight bridge, confidence 0 so the pool is full), four
@@ -19,7 +24,12 @@
    backend's run and read after it.
 4. Float32 forward parity: one image through Darknet53 + head on the card
    (TF32 off) against the same weights on the CPU.
-5. Times, with CUDA events after warm-up.
+5. Times, with CUDA events after warm-up, of the serve step and of each
+   kernel at the serving shapes (a kernel's ``ms`` with the stream held
+   until all its calls are enqueued, so it is the card's time alone), and
+   of the pop-max kernel on an army of 1,000 identical boxes at the top of
+   the order and on a pool of identical boxes (its worst case: one sweep
+   step per 64 candidates).
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -66,12 +76,20 @@ def smi_line() -> str:
         check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean ms per call between CUDA events around ``reps`` calls.
+
+    ``queued``: hold the stream behind a sleep kernel (~0.1 s) while the
+    host enqueues the calls, so the events time the device's work alone,
+    back to back, without the wrapper's host time between launches."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -84,22 +102,40 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 # inputs
 # ---------------------------------------------------------------------------
 
-def make_pool(dev, seed):
+def make_pool(dev, seed, n=N_POOL):
     """Boxes on a 608 canvas, scores with exact-tie armies, 80 classes."""
     import numpy as np
     import torch
-    b, n = B, N_POOL
     rng = np.random.RandomState(seed)
-    xy = rng.rand(b, n, 2) * 560
-    wh = rng.rand(b, n, 2) * 120 + 4
+    m = max(n, 2200)                  # room for the armies, then cut to n
+    xy = rng.rand(B, m, 2) * 560
+    wh = rng.rand(B, m, 2) * 120 + 4
     boxes = np.concatenate([xy, wh], -1).astype(np.float32)
-    scores = rng.rand(b, n).astype(np.float32)
+    scores = rng.rand(B, m).astype(np.float32)
     scores[:, 500:600] = scores[:, 400:500]       # tie armies
     scores[:, 1000:1300] = scores[:, :1][:, [0] * 300]
     boxes[:, 2000:2100] = boxes[:, 2100:2200]     # duplicate boxes
-    classes = rng.randint(0, NUM_CLASSES, (b, n)).astype(np.int32)
-    return tuple(torch.from_numpy(a).to(dev) for a in (boxes, scores,
-                                                       classes))
+    boxes, scores = boxes[:, :n], scores[:, :n]
+    classes = rng.randint(0, NUM_CLASSES, (B, n)).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (boxes, scores, classes))
+
+
+def tie_pool(pool, size):
+    """``pool`` with one top score shared by its first ``size`` candidates:
+    more ties than the pop-max kernel's selected head holds."""
+    boxes, scores, classes = (t.clone() for t in pool)
+    scores[:, :size] = 1.0
+    return boxes, scores, classes
+
+
+def army_pool(pool, size):
+    """``pool`` with its first ``size`` candidates one identical box at the
+    top score: the kept list removes them chunk after chunk."""
+    boxes, scores, classes = (t.clone() for t in pool)
+    boxes[:, :size] = boxes[:, :1]
+    scores[:, :size] = 1.0
+    return boxes, scores, classes
 
 
 def letterboxed_batches(count, seed):
@@ -145,6 +181,9 @@ def compare_popmax(got, want, method, use_iol, label):
                 f' overlap {ov!r} (threshold {THR!r})')
         raise AssertionError(f'{label}: detections differ at image {b_} '
                              f'slot {i}')
+    if not (torch.equal(gb, wb) and torch.equal(gc, wc)
+            and torch.equal(gs, ws)):
+        raise AssertionError(f'{label}: the invalid tail slots differ')
     err = max((gb[v] - wb[v]).abs().max().item() if v.any() else 0.0,
               (gs[v] - ws[v]).abs().max().item() if v.any() else 0.0)
     return err
@@ -254,6 +293,24 @@ def phase_kernels(dev):
             got, want, method, use_iol, label))
         log(f'[kernels] {label}: equal, {int(got[3].sum())} valid of '
             f'{got[3].numel()}')
+    extra = [('n=63', make_pool(dev, SEED + 1, 63), CONF),
+             ('n=65', make_pool(dev, SEED + 2, 65), CONF),
+             ('n=9261 (@672)', make_pool(dev, SEED + 3, 9261), CONF),
+             ('army of 1000', army_pool(pool, 1000), CONF),
+             ('3000 equal top scores', tie_pool(pool, 3000), CONF)]
+    bx, sc, cl = make_pool(dev, SEED + 4, 200)    # exhausted: ~80 live
+    deep = torch.rand(sc.shape, generator=torch.Generator().manual_seed(4))
+    sc = torch.where(deep.to(dev) < 0.6, -7e8 - sc * 1e8, sc)
+    extra.append(('scores in (NEG, NEG/2]', (bx, sc, cl), -9e8))
+    for name, p, conf in extra:
+        label = f'popmax {name}'
+        got = cuda_nms.popmax_nms(*p, conf, THR, MAX_BOXES)
+        want = cuda_nms.popmax_nms_plain(*p, conf, THR, MAX_BOXES)
+        torch.cuda.synchronize()
+        errs['popmax_nms'] = max(errs['popmax_nms'], compare_popmax(
+            got, want, 'diou', True, label))
+        log(f'[kernels] {label}: equal, {int(got[3].sum())} valid of '
+            f'{got[3].numel()}')
     boxes, scores, classes = pool
     low = torch.full_like(scores, 0.01)
     got = cuda_nms.popmax_nms(boxes, low, classes, 0.1, THR, MAX_BOXES)
@@ -264,12 +321,24 @@ def phase_kernels(dev):
         raise AssertionError('popmax: all-below-confidence pool gave output')
     compare_popmax(got, want, 'diou', True, 'popmax below-confidence')
     log('[kernels] popmax all below confidence: no valid output, equal')
+    big = None
+    try:
+        cuda_nms.popmax_nms(*make_pool(dev, SEED, 16385), CONF, THR,
+                            MAX_BOXES)
+    except ValueError as e:
+        big = str(e)
+    if not big:
+        raise AssertionError('popmax: a pool above capacity did not raise')
+    log(f'[kernels] popmax above capacity raises: {big}')
 
     order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
     sorted_boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
     sorted_valid = torch.gather(scores, 1, order) >= CONF
-    for k in (1024, N_POOL):
+    holes = torch.rand(B, 64, generator=torch.Generator().manual_seed(5))
+    for k in (64, 1024, N_POOL):
         bx, va = sorted_boxes[:, :k].contiguous(), sorted_valid[:, :k]
+        if k == 64:     # valid holes inside the one chunk
+            va = va & (holes.to(dev) > 0.25)
         va = va.contiguous()
         for method, use_iol in (('diou', True), ('standard', False)):
             label = f'greedy k={k} {method} iol={use_iol}'
@@ -437,15 +506,26 @@ def phase_times(engines, batches, pool):
     # pop-max on the served pool (confidence 0: the whole pool is live)
     boxes, scores, classes = pool
     args = (boxes, scores, classes, 0.0, THR, MAX_BOXES, 'diou', True)
-    ms = cuda_ms(lambda: cuda_nms.popmax_nms(*args), 20, 3)
+    ms = cuda_ms(lambda: cuda_nms.popmax_nms(*args), 20, 3, queued=True)
+    call_ms = cuda_ms(lambda: cuda_nms.popmax_nms(*args), 20, 3)
     plain_ms = cuda_ms(lambda: cuda_nms.popmax_nms_plain(*args), 3, 1)
     n = boxes.shape[1]
     moved = B * n * (16 + 4 + 4) + B * MAX_BOXES * (16 + 4 + 4 + 1)
     pairs = popmax_pairs(boxes, scores, 0.0, THR, MAX_BOXES, 'diou', True)
     ops = pairs * (PAIR_OPS[('diou', True)] + 2) + B * n * 3
     bms, by = bound(moved, ops)
-    kernels.append({'name': 'popmax_nms', 'ms': ms, 'plain_ms': plain_ms,
-                    'bound_ms': bms, 'bound_by': by, 'pairs': pairs})
+    kernels.append({'name': 'popmax_nms', 'ms': ms, 'call_ms': call_ms,
+                    'plain_ms': plain_ms, 'bound_ms': bms, 'bound_by': by,
+                    'pairs': pairs})
+    # the sweep's hard cases: identical boxes at the top of the order
+    for size, key in ((1000, 'army_1000_ms'), (n, 'army_all_ms')):
+        army = army_pool(pool, size)
+        times[f'popmax_{key}'] = cuda_ms(
+            lambda: cuda_nms.popmax_nms(*army, 0.0, THR, MAX_BOXES), 20, 3,
+            queued=True)
+    log(f'[times] popmax_nms with an army of 1000 identical boxes at the '
+        f'top: {times["popmax_army_1000_ms"]:.4f} ms; all {n} identical: '
+        f'{times["popmax_army_all_ms"]:.4f} ms')
     # greedy on what the `pallas` backend hands it: the top 1,024 of the
     # same pool, sorted by score
     k = min(1024, n)
@@ -453,19 +533,24 @@ def phase_times(engines, batches, pool):
     bx = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
     bx = bx.contiguous()
     va = torch.ones(B, k, dtype=torch.bool, device=bx.device)
-    ms = cuda_ms(lambda: cuda_nms.greedy_nms(bx, va, THR, 'diou', True), 20, 3)
+    ms = cuda_ms(lambda: cuda_nms.greedy_nms(bx, va, THR, 'diou', True), 20, 3,
+                 queued=True)
+    call_ms = cuda_ms(lambda: cuda_nms.greedy_nms(bx, va, THR, 'diou', True),
+                      20, 3)
     plain_ms = cuda_ms(lambda: cuda_nms.greedy_nms_plain(bx, va, THR, 'diou',
                                                          True), 3, 1)
     keep = cuda_nms.greedy_nms(bx, va, THR, 'diou', True)
     pairs = greedy_pairs(bx, va, keep, THR, 'diou', True)
     moved = B * k * (16 + 1 + 1)
     bms, by = bound(moved, pairs * (PAIR_OPS[('diou', True)]))
-    kernels.append({'name': 'greedy_nms', 'ms': ms, 'plain_ms': plain_ms,
-                    'bound_ms': bms, 'bound_by': by, 'pairs': pairs})
+    kernels.append({'name': 'greedy_nms', 'ms': ms, 'call_ms': call_ms,
+                    'plain_ms': plain_ms, 'bound_ms': bms, 'bound_by': by,
+                    'pairs': pairs})
     for k in kernels:
-        log(f'[times] {k["name"]}: {k["ms"]:.4f} ms, plain {k["plain_ms"]:.3f}'
-            f' ms, bound {k["bound_ms"]:.5f} ms ({k["bound_by"]}, '
-            f'{k["pairs"]} pairs)')
+        log(f'[times] {k["name"]}: {k["ms"]:.4f} ms on the card ('
+            f'{k["call_ms"]:.4f} ms a call with the wrapper\'s host time), '
+            f'plain {k["plain_ms"]:.3f} ms, bound {k["bound_ms"]:.5f} ms '
+            f'({k["bound_by"]}, {k["pairs"]} pairs)')
     return times, kernels
 
 
@@ -514,6 +599,8 @@ def main(argv=None) -> int:
                        'f32_parity_rel_err': f32_err, 'kernels': kernels,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},
+                       'kernel_call_ms': {k['name']: k['call_ms']
+                                          for k in ktimes},
                        'seconds': time.perf_counter() - t_start}, f,
                       indent=1)
     print(json.dumps({'kernels': kernels}))

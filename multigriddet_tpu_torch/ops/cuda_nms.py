@@ -3,33 +3,44 @@ PyTorch versions.
 
 ``popmax_nms`` replaces ``pallas_popmax_nms`` / ``_popmax_kernel``
 (``multigriddet_tpu/ops/pallas_nms.py:115-247``): confidence filter and
-greedy NMS fused over the whole untruncated pool, ``max_boxes`` pop-max
-steps, one image per block.
+greedy NMS fused over the whole untruncated pool, one image per block.
   Bound on the card: latency.  At the serving shape (B = 8, N = 7,581,
   max_boxes = 100) the inputs are B*N*24 bytes (1.5 MB, under a
-  microsecond at HBM rate) and the overlap arithmetic is some 30 float32
-  operations per candidate and step (about 2.7 us at the card's float32
-  rate), but the steps are serially dependent: each ends in a block-wide
-  argmax and two barriers.  The design keeps the pool in shared memory
-  (24 B per candidate, up to ~9.6k candidates), fuses each step's
-  suppression with the search for the next winner (one pass over shared
-  memory per step), and stops the loop once the pool is empty.  B blocks
-  occupy B of the 132 SMs.
+  microsecond at HBM rate) and the overlap tests a few million float32
+  operations, but greedy NMS is a chain of dependent decisions, each
+  paid for with a barrier.  The design takes the chain out of the pool's
+  size: the live candidates' (score, index) keys are compacted into
+  shared memory, a two-pass radix select picks the best ~512 of them, a
+  bitonic sort (three stages per trip through shared memory) orders
+  those, and the sorted list is swept 64 candidates at a step: each is
+  tested against the boxes kept so far, the chunk's 64 x 64 suppression
+  words are filled in parallel, and one warp resolves them with bit
+  operations.  The sweep stops at ``max_boxes`` keeps; only if it runs
+  past the selected head are all the keys sorted (an army of identical
+  boxes at the top of the order does that, and costs one step per 64 of
+  them).  Holds up to ``mgd_popmax_capacity(max_boxes)`` candidates
+  (16,384 at 100 boxes).
 
 ``greedy_nms`` replaces ``pallas_greedy_nms`` / ``_nms_sweep_kernel``
 (``multigriddet_tpu/ops/pallas_nms.py:34-112``): the keep mask of K boxes
-already sorted by descending score.  Batched: one block per image over
-``[B, K, 4]`` (the JAX wrapper handles one image and is vmapped).
-  Bound on the card: latency, K dependent steps.  Boxes and keep flags
-  live in shared memory (17 B per box, any K up to ~13.6k); a box already
-  dropped costs one shared load and no barrier, a kept box one pass over
-  the later boxes and one barrier.
+already sorted by descending score.  Batched (the JAX wrapper handles one
+image and is vmapped).
+  Bound on the card: latency, K dependent decisions.  A first kernel fills
+  the K x K suppression bitmask (upper-triangular 64 x 64 blocks, 256
+  threads each, B * ceil(K/64)^2 / 2 blocks over the whole card) into a
+  ``[B, K, ceil(K/64)]`` int64 scratch; a second, one block per image,
+  scans it 64 rows at a step with one barrier a step: one warp resolves
+  the chunk's rows from their diagonal words held in shared memory and
+  carries its survivors into the next chunk, while the other warps OR the
+  previous chunk's survivors into the chunks after that.  Holds up to
+  ``mgd_greedy_capacity()`` boxes (about 14,000).
 
 Each wrapper runs its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; it never falls back.  It counts
-its launches in ``<wrapper>.launches``.  The plain versions repeat the
-kernels' float32 arithmetic operation by operation, so decisions agree
-bit for bit, ties included.
+one launch per call in ``<wrapper>.launches`` (``greedy_nms`` launches two
+CUDA kernels per call).  The plain versions repeat the kernels' float32
+arithmetic operation by operation, so decisions agree bit for bit, ties
+included.
 """
 
 from __future__ import annotations
@@ -138,10 +149,11 @@ def popmax_nms(boxes: torch.Tensor, scores: torch.Tensor,
                                 threshold, max_boxes, method, use_iol)
     b, n = _check_cuda_inputs(boxes, scores=scores, classes=classes)
     lib = _library()
-    if n > lib.mgd_popmax_capacity():
-        raise ValueError(f'popmax_nms holds at most '
-                         f'{lib.mgd_popmax_capacity()} candidates per image '
-                         f'in shared memory, got {n}')
+    capacity = lib.mgd_popmax_capacity(max_boxes)
+    if n > capacity:
+        raise ValueError(f'popmax_nms holds at most {capacity} candidates '
+                         f'per image in shared memory beside {max_boxes} '
+                         f'kept boxes, got {n}')
     dev = boxes.device
     out_b = torch.empty(b, max_boxes, 4, device=dev)
     out_c = torch.empty(b, max_boxes, dtype=torch.int32, device=dev)
@@ -210,10 +222,14 @@ def greedy_nms(boxes: torch.Tensor, valid: torch.Tensor, threshold: float,
                          f'{lib.mgd_greedy_capacity()} boxes per image in '
                          f'shared memory, got {k}')
     keep = torch.empty(b, k, dtype=torch.bool, device=boxes.device)
+    # suppression words: row i, bit t of word w <=> box i drops box 64*w+t
+    mask = torch.empty(b, k, -(-k // 64), dtype=torch.int64,
+                       device=boxes.device)
     if b and k:
         err = lib.mgd_greedy_nms(
             boxes.data_ptr(), valid.data_ptr(), b, k, float(threshold),
-            int(method == 'diou'), int(use_iol), keep.data_ptr(),
+            int(method == 'diou'), int(use_iol), mask.data_ptr(),
+            keep.data_ptr(),
             torch.cuda.current_stream(boxes.device).cuda_stream)
         _raise_on(err, 'greedy_nms')
         greedy_nms.launches += 1
@@ -262,14 +278,14 @@ def _library() -> ctypes.CDLL:
     lib = kernel_build.load(_SOURCE)
     if not getattr(lib, '_mgd_bound', False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mgd_popmax_capacity.argtypes = []
+        lib.mgd_popmax_capacity.argtypes = [i]
         lib.mgd_popmax_capacity.restype = i
         lib.mgd_greedy_capacity.argtypes = []
         lib.mgd_greedy_capacity.restype = i
         lib.mgd_popmax_nms.argtypes = [p, p, p, i, i, f, f, i, i, i,
                                        p, p, p, p, p]
         lib.mgd_popmax_nms.restype = i
-        lib.mgd_greedy_nms.argtypes = [p, p, i, i, f, i, i, p, p]
+        lib.mgd_greedy_nms.argtypes = [p, p, i, i, f, i, i, p, p, p]
         lib.mgd_greedy_nms.restype = i
         lib._mgd_bound = True
     return lib
