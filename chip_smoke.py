@@ -12,9 +12,11 @@
    (the @672 pool), an army of 1,000 identical boxes at the top of the
    order, 3,000 equal top scores, filtered scores in (NEG, NEG/2] that the
    tail repeats, and a pool above the kernel's capacity (must raise);
-   greedy NMS at K = 64 (with valid holes), 1,024 and K = N, all invalid.
-   Equal valid masks, order and classes; boxes and scores bit-equal, tail
-   slots included.
+   pop-max at the evaluator's 500 keeps on the served-shape pool at
+   confidence 0.1, 0 and 0.9 (exhausted) and on the @672 pool, for
+   (diou, IoL) and (standard, IoU); greedy NMS at K = 64 (with valid
+   holes), 1,024 and K = N, all invalid.  Equal valid masks, order and
+   classes; boxes and scores bit-equal, tail slots included.
 3. Serve: ``MultiGridInference`` from a config dict (multigriddet_darknet,
    608x608, 80 classes, COCO anchors, bfloat16, seeded random weights
    through the flax weight bridge, confidence 0 so the pool is full), four
@@ -30,6 +32,17 @@
    of the pop-max kernel on an army of 1,000 identical boxes at the top of
    the order and on a pool of identical boxes (its worst case: one sweep
    step per 64 candidates).
+6. Evaluate: ``MultiGridEvaluator._evaluate_batches`` on the same model
+   with the evaluator's settings (confidence 0.1, DIoU/IoL 0.45, 500
+   detections, rgb link) over 8 batches of 8 letterboxed 640x480 frames,
+   against ground truth made by the plain pop-max on the same pools:
+   ``pallas_fused`` predictions bit-equal to it and mAP@[.5:.95] = 1 over
+   boxes at least 0.1 px a side, one pop-max launch per batch; ``pallas``
+   (one greedy call per batch), ``xla`` and a yuv420 run give in-range
+   detections and their mAP; ``calculate_map`` equal through the native
+   matcher and numpy; one ``detection.use_wbf`` serve batch equal to
+   ``fuse_and_cap`` over its candidates; eval images/s and metrics seconds
+   per backend, and the pop-max kernel timed at 500 keeps.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -63,6 +76,10 @@ PAIR_OPS = {('standard', False): 17, ('standard', True): 16,
 # forward parity on the card, float32 with TF32 off, against the CPU:
 # different conv algorithms sum in different orders (~1e-6 relative)
 F32_PARITY_RTOL = 1e-4
+# the evaluator's settings (configs/eval_config.yaml): confidence 0.1,
+# 500 detections per image; 8 batches of 8 letterboxed 640x480 frames
+EVAL_CONF, EVAL_MAX_BOXES, EVAL_BATCHES = 0.1, 500, 8
+FRAME_HW = (480, 640)
 
 
 def log(msg):
@@ -311,6 +328,26 @@ def phase_kernels(dev):
             got, want, 'diou', True, label))
         log(f'[kernels] {label}: equal, {int(got[3].sum())} valid of '
             f'{got[3].numel()}')
+    # the evaluator's capacity: 500 keeps run the sweep past the selected
+    # head into the full sort, on ordinary pools; at confidence 0.9 the
+    # pool runs out before 500 keeps (the exhausted tail)
+    at672 = make_pool(dev, SEED + 3, 9261)
+    for name, p, conf in (('served pool, conf 0.1', pool, EVAL_CONF),
+                          ('served pool, conf 0', pool, 0.0),
+                          ('served pool, conf 0.9', pool, 0.9),
+                          ('n=9261 (@672), conf 0.1', at672, EVAL_CONF)):
+        for method, use_iol in (('diou', True), ('standard', False)):
+            label = f'popmax max_boxes={EVAL_MAX_BOXES} {name} {method} ' \
+                    f'iol={use_iol}'
+            got = cuda_nms.popmax_nms(*p, conf, THR, EVAL_MAX_BOXES, method,
+                                      use_iol)
+            want = cuda_nms.popmax_nms_plain(*p, conf, THR, EVAL_MAX_BOXES,
+                                             method, use_iol)
+            torch.cuda.synchronize()
+            errs['popmax_nms'] = max(errs['popmax_nms'], compare_popmax(
+                got, want, method, use_iol, label))
+            log(f'[kernels] {label}: equal, {int(got[3].sum())} valid of '
+                f'{got[3].numel()}')
     boxes, scores, classes = pool
     low = torch.full_like(scores, 0.01)
     got = cuda_nms.popmax_nms(boxes, low, classes, 0.1, THR, MAX_BOXES)
@@ -554,6 +591,235 @@ def phase_times(engines, batches, pool):
     return times, kernels
 
 
+def eval_config(backend):
+    """The evaluator on the serve phase's model: 80 classes, COCO
+    anchors, 608x608, bfloat16, b8, seeded random weights (seed 0, the
+    seed build_model_for_inference uses without a weights file), with the
+    settings of configs/eval_config.yaml."""
+    cfg = serve_config(backend)
+    del cfg['input'], cfg['detection']
+    cfg['evaluation'] = {
+        'batch_size': B, 'input_shape': [*HW, 3],
+        'confidence_threshold': EVAL_CONF, 'nms_threshold': THR,
+        'nms_method': 'diou', 'use_iol': True,
+        'max_detections': EVAL_MAX_BOXES, 'nms_backend': backend,
+        'link_format': 'rgb', 'save_results': False}
+    return cfg
+
+
+def evaluator_variant(ev, backend, link_format):
+    """``ev`` with the fused step that ``evaluation.nms_backend`` =
+    ``backend`` and ``evaluation.link_format`` = ``link_format`` give,
+    over the same model (a new evaluator would only rebuild the same
+    seeded weights)."""
+    import copy
+    out = copy.copy(ev)
+    out.eval_cfg = dict(ev.eval_cfg, nms_backend=backend,
+                        link_format=link_format)
+    out.timing = {}
+    out._build_step()
+    return out
+
+
+def in_range(boxes, classes, scores, image_hw, conf):
+    import numpy as np
+    h, w = image_hw
+    return bool(np.isfinite(boxes).all() and np.isfinite(scores).all()
+                and (scores >= conf).all() and (scores <= 1).all()
+                and ((classes >= 0) & (classes < NUM_CLASSES)).all()
+                and (boxes[:, :2] >= 0).all()
+                and (boxes[:, 0] + boxes[:, 2] <= w + 1e-3).all()
+                and (boxes[:, 1] + boxes[:, 3] <= h + 1e-3).all())
+
+
+def phase_evaluate(serve_pool, smi):
+    """``MultiGridEvaluator._evaluate_batches`` over in-memory batches for
+    each NMS backend, against ground truth made by the plain pop-max;
+    the matchers; one WBF serve batch; the pop-max kernel at 500 keeps."""
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.data import native
+    from multigriddet_tpu_torch.evaluation import MultiGridEvaluator, metrics
+    from multigriddet_tpu_torch.inference import MultiGridInference
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.ops.geometry import canvas_boxes_to_image
+    from multigriddet_tpu_torch.ops.yuv import rgb_to_yuv420_np
+    from multigriddet_tpu_torch.postprocess.wbf import fuse_and_cap
+    from multigriddet_tpu_torch.training.steps import (candidate_pool,
+                                                       fetch_detections)
+    t0 = time.perf_counter()
+    matcher = native.matcher_available()     # built here, not in metrics_s
+    log(f'[evaluate] native matcher available: {matcher} '
+        f'({time.perf_counter() - t0:.2f} s to build and load)')
+    ev = MultiGridEvaluator(eval_config('pallas_fused'))
+    batches = letterboxed_batches(EVAL_BATCHES, SEED + 1)
+    # ground truth: the plain pop-max's detections on the same pools, in
+    # image pixels, as x1y1x2y2cls
+    items, plain = [], []
+    for k, batch in enumerate(batches):
+        with torch.inference_mode():
+            pool = candidate_pool(
+                ev.model, torch.from_numpy(batch).cuda().float() / 255.0,
+                ev.spec['anchors'], HW)
+            res = [t.cpu().numpy() for t in cuda_nms.popmax_nms_plain(
+                *pool, EVAL_CONF, THR, EVAL_MAX_BOXES, 'diou', True)]
+        metas = []
+        for i in range(B):
+            b, c, s, v = (a[i] for a in res)
+            xywh = canvas_boxes_to_image(b[v], FRAME_HW, HW)
+            plain.append((xywh, c[v], s[v]))
+            gt = np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:],
+                                 c[v][:, None]], 1).astype(np.float32)
+            metas.append((k * B + i, gt, *FRAME_HW, None, False))
+        items.append(((batch,), metas))
+    kept = [len(p[0]) for p in plain]
+    log(f'[evaluate] ground truth: plain pop-max keeps per image min '
+        f'{min(kept)} / mean {np.mean(kept):.1f} / max {max(kept)} '
+        f'(capacity {EVAL_MAX_BOXES}, confidence {EVAL_CONF})')
+
+    report = {'kept_per_image': kept, 'runs': {}}
+    want = {'pallas_fused': (EVAL_BATCHES, 0), 'pallas': (0, EVAL_BATCHES),
+            'xla': (0, 0)}
+    runs = {}
+    for backend, link in (('pallas_fused', 'rgb'), ('pallas', 'rgb'),
+                          ('xla', 'rgb'), ('pallas_fused', 'yuv420')):
+        e = ev if (backend, link) == ('pallas_fused', 'rgb') else \
+            evaluator_variant(ev, backend, link)
+        feed = items if link == 'rgb' else [
+            (rgb_to_yuv420_np(parts[0]), metas) for parts, metas in items]
+        cuda_nms.popmax_nms.launches = 0
+        cuda_nms.greedy_nms.launches = 0
+        res = e._evaluate_batches(feed)
+        launches = (cuda_nms.popmax_nms.launches,
+                    cuda_nms.greedy_nms.launches)
+        if launches != want[backend]:
+            raise AssertionError(f'evaluate {backend}/{link}: launches '
+                                 f'(popmax, greedy) {launches}, expected '
+                                 f'{want[backend]}')
+        for img, p in e.predictions.items():
+            if not in_range(p['boxes'], p['classes'], p['scores'],
+                            FRAME_HW, EVAL_CONF):
+                raise AssertionError(f'evaluate {backend}/{link}: image '
+                                     f'{img} has detections out of range')
+        runs[(backend, link)] = e
+        report['runs'][f'{backend}/{link}'] = {
+            'mAP': res['mAP'], 'mAP50': res['mAP50'],
+            'images_per_sec': e.timing['images_per_sec'],
+            'inference_s': e.timing['inference_s'],
+            'metrics_s': e.timing['metrics_s'],
+            'detections': int(sum(len(p['boxes'])
+                                  for p in e.predictions.values())),
+            'launches_popmax_greedy': list(launches)}
+        log(f'[evaluate] {backend}/{link}: {res["num_images"]} images, '
+            f'mAP {res["mAP"]:.6f}, mAP50 {res["mAP50"]:.6f}; inference '
+            f'{e.timing["images_per_sec"]:.1f} img/s '
+            f'({e.timing["inference_s"]:.3f} s), metrics '
+            f'{e.timing["metrics_s"]:.3f} s; launches (popmax, greedy) '
+            f'{launches}')
+
+    fused = runs[('pallas_fused', 'rgb')]
+    for img, (b, c, s) in enumerate(plain):
+        p = fused.predictions[img]
+        if not (np.array_equal(p['classes'], c)
+                and np.array_equal(p['boxes'], b)
+                and np.array_equal(p['scores'], s)):
+            raise AssertionError(f'evaluate: pallas_fused predictions of '
+                                 f'image {img} differ from the plain pop-max')
+    # mAP against that ground truth is 1 over the boxes the letterbox
+    # inverse leaves at least 0.1 px a side: a detection wholly in the
+    # gray border or off the canvas is clipped to zero area, and a
+    # zero-area box matches nothing (IoU 0), itself included
+    def sized(d, keeps):
+        return {img: {k: v[keeps[img]] for k, v in p.items()}
+                for img, p in d.items()}
+    keeps = {img: (p['boxes'][:, 2] >= 0.1) & (p['boxes'][:, 3] >= 0.1)
+             for img, p in fused.predictions.items()}
+    clipped = int(sum((~k).sum() for k in keeps.values()))
+    m = metrics.calculate_map(sized(fused.predictions, keeps),
+                              sized(fused.ground_truths, keeps),
+                              NUM_CLASSES)['mAP']
+    report.update(map_sized=m, clipped_to_zero=clipped)
+    if abs(1.0 - m) > 1e-6:
+        raise AssertionError(f'evaluate: mAP@[.5:.95] {m!r} against the '
+                             f'plain pop-max ground truth, expected 1')
+    log(f'[evaluate] pallas_fused predictions == plain pop-max (classes, '
+        f'order, boxes and scores bit for bit); mAP@[.5:.95] = {m!r} over '
+        f'the boxes at least 0.1 px a side ({clipped} of '
+        f'{sum(kept)} clipped below that by the letterbox inverse)')
+
+    # the native matcher and the numpy one give the same results
+    args = (fused.predictions, fused.ground_truths, NUM_CLASSES)
+    with_native = metrics.calculate_map(*args)
+    available = native.matcher_available
+    native.matcher_available = lambda: False
+    try:
+        with_numpy = metrics.calculate_map(*args)
+    finally:
+        native.matcher_available = available
+    same = all(with_native[k] == with_numpy[k]
+               for k in ('mAP', 'mAP50', 'mAP75'))
+    same = same and with_native['per_class_ap'] == with_numpy['per_class_ap']
+    if not same:
+        raise AssertionError('evaluate: native and numpy matchers differ')
+    report.update(matcher_native=matcher,
+                  loader_native=native.native_available())
+    log(f'[evaluate] calculate_map equal through the native matcher '
+        f'(available: {matcher}) and numpy; native JPEG loader available: '
+        f'{report["loader_native"]}')
+
+    # one serve batch with detection.use_wbf (paper mode)
+    cfg = serve_config('xla')
+    cfg['detection'].update(use_wbf=True, wbf_mode='paper',
+                            confidence_threshold=EVAL_CONF,
+                            pre_nms_top_k=256)
+    engine = MultiGridInference(cfg)
+    outs = engine.infer_batch(batches[0])
+    cands = fetch_detections(outs)
+    got: list = []
+    engine._postprocess_batch(outs, [FRAME_HW] * B, got)
+    for i, (b, c, s) in enumerate(got):
+        v = cands[3][i]
+        fb, fc, fs = fuse_and_cap(cands[0][i][v], cands[1][i][v],
+                                  cands[2][i][v], iou_thr=THR, mode='paper',
+                                  max_out=MAX_BOXES)
+        if len(fb):
+            fb = canvas_boxes_to_image(fb, FRAME_HW, HW)
+        if not (np.array_equal(b, fb) and np.array_equal(c, fc)
+                and np.array_equal(s, fs)):
+            raise AssertionError(f'wbf: image {i} differs from fuse_and_cap '
+                                 f'over the fetched candidates')
+        if not in_range(b, c, s, FRAME_HW, EVAL_CONF) or len(b) > MAX_BOXES:
+            raise AssertionError(f'wbf: image {i} out of range')
+    report['wbf_per_image'] = [len(r[0]) for r in got]
+    log(f'[evaluate] use_wbf serve batch == fuse_and_cap over the fetched '
+        f'candidates; fused detections per image {report["wbf_per_image"]}')
+
+    # the pop-max kernel at the evaluator's 500 keeps on the served pool
+    boxes, scores, classes = serve_pool
+    n = boxes.shape[1]
+    report['popmax_500'] = {}
+    for conf in (EVAL_CONF, 0.0):
+        args = (boxes, scores, classes, conf, THR, EVAL_MAX_BOXES, 'diou',
+                True)
+        ms = cuda_ms(lambda: cuda_nms.popmax_nms(*args), 20, 3, queued=True)
+        plain_ms = cuda_ms(lambda: cuda_nms.popmax_nms_plain(*args), 3, 1)
+        pairs = popmax_pairs(boxes, scores, conf, THR, EVAL_MAX_BOXES,
+                             'diou', True)
+        valid = int(cuda_nms.popmax_nms(*args)[3].sum())
+        moved = B * n * (16 + 4 + 4) + B * EVAL_MAX_BOXES * (16 + 4 + 4 + 1)
+        bms, by = bound(moved, pairs * (PAIR_OPS[('diou', True)] + 2)
+                        + B * n * 3)
+        report['popmax_500'][str(conf)] = {
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bms,
+            'bound_by': by, 'pairs': pairs, 'valid': valid}
+        log(f'[evaluate] popmax_nms max_boxes={EVAL_MAX_BOXES} on the '
+            f'served pool, confidence {conf}: {ms:.4f} ms on the card, plain '
+            f'{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}, {pairs} pairs), '
+            f'{valid} valid of {B * EVAL_MAX_BOXES}')
+    log(f'[evaluate] card: {smi}')
+    return report
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--report', default=None,
@@ -576,6 +842,10 @@ def main(argv=None) -> int:
     engines, launches, pool = phase_serve(batches)
     f32_err = phase_f32_parity(engines['pallas_fused'], batches[0])
     times, ktimes = phase_times(engines, batches, pool)
+    t_eval = time.perf_counter()
+    evaluate = phase_evaluate(pool, smi)
+    evaluate['seconds'] = time.perf_counter() - t_eval
+    log(f'[evaluate] phase took {evaluate["seconds"]:.1f} s')
 
     src = 'multigriddet_tpu_torch/csrc/nms.cu'
     replaces = {'popmax_nms': 'multigriddet_tpu/ops/pallas_nms.py:115',
@@ -597,6 +867,7 @@ def main(argv=None) -> int:
                        'build_seconds': build['seconds'],
                        'serve': times, 'launches': launches,
                        'f32_parity_rel_err': f32_err, 'kernels': kernels,
+                       'evaluate': evaluate,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},
                        'kernel_call_ms': {k['name']: k['call_ms']

@@ -1,5 +1,11 @@
-"""Host data helpers of the port (the inference side only)."""
+"""Host data helpers of the port: annotations, host image loading, the
+native loader and matcher bindings."""
 
-from .annotations import letterbox_image
+from .annotations import (HostImageLoader, letterbox_image,
+                          load_and_letterbox, load_annotation_lines,
+                          parse_annotation_line)
 
-__all__ = ['letterbox_image']
+__all__ = [
+    'HostImageLoader', 'letterbox_image', 'load_and_letterbox',
+    'load_annotation_lines', 'parse_annotation_line',
+]

@@ -1,15 +1,45 @@
-"""Host-side image letterboxing.
+"""Annotation parsing and host-side image loading.
 
-Counterpart of ``letterbox_image`` in
-``multigriddet_tpu/data/annotations.py:43-58``: the same Pillow BICUBIC
-resize onto a gray (128) canvas.  Pillow is imported when called.
+Counterpart of ``multigriddet_tpu/data/annotations.py``: one line per
+image, ``image_path x1,y1,x2,y2,cls x1,y1,x2,y2,cls ...``; Pillow BICUBIC
+letterboxing onto a gray (128) canvas; and ``HostImageLoader``, which
+decodes and letterboxes batches into numpy arrays (native JPEG loader
+where it is built, PIL otherwise).  Pillow is imported when an image is
+read, so the module imports without it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import hashlib
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def load_annotation_lines(path: str, shuffle: bool = True,
+                          seed: Optional[int] = None) -> List[str]:
+    with open(path) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    if shuffle:
+        rng = np.random.RandomState(seed)
+        rng.shuffle(lines)
+    return lines
+
+
+def parse_annotation_line(line: str) -> Tuple[str, np.ndarray]:
+    """Split a line into (image_path, boxes [N, 5] float32)."""
+    parts = line.split()
+    path = parts[0]
+    boxes = []
+    for tok in parts[1:]:
+        vals = tok.split(',')
+        if len(vals) == 5:
+            boxes.append([float(v) for v in vals])
+    arr = (np.asarray(boxes, np.float32) if boxes
+           else np.zeros((0, 5), np.float32))
+    return path, arr
 
 
 def letterbox_image(image, target_hw: Tuple[int, int]
@@ -29,3 +59,231 @@ def letterbox_image(image, target_hw: Tuple[int, int]
     canvas = Image.new('RGB', (tw, th), (128, 128, 128))
     canvas.paste(resized, (pad_x, pad_y))
     return np.asarray(canvas, np.uint8), scale, pad_x, pad_y
+
+
+def _letterbox_boxes(boxes: np.ndarray, max_boxes: int, scale: float,
+                     pad_x: float, pad_y: float) -> np.ndarray:
+    """Image-pixel boxes -> canvas pixels, padded or cut to
+    ``max_boxes`` rows."""
+    out = np.zeros((max_boxes, 5), np.float32)
+    n = min(len(boxes), max_boxes)
+    if n:
+        b = boxes[:n].copy()
+        b[:, [0, 2]] = b[:, [0, 2]] * scale + pad_x
+        b[:, [1, 3]] = b[:, [1, 3]] * scale + pad_y
+        out[:n] = b
+    return out
+
+
+def load_and_letterbox(line: str, target_hw: Tuple[int, int],
+                       max_boxes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode one annotation line to (image [H, W, 3] u8,
+    boxes [max_boxes, 5]) with the boxes in canvas pixels."""
+    from PIL import Image
+
+    path, boxes = parse_annotation_line(line)
+    with Image.open(path) as img:
+        img = img.convert('RGB')
+        arr, scale, pad_x, pad_y = letterbox_image(img, target_hw)
+    return arr, _letterbox_boxes(boxes, max_boxes, scale, pad_x, pad_y)
+
+
+class HostImageLoader:
+    """Image decode + letterbox producing numpy batches.
+
+    JPEG batches go through the native loader (``data/native.py``) when it
+    is built; everything else, and any slot the native path rejects, goes
+    through PIL on a thread pool.  ``link_format='rgb'`` gives one
+    ``[N, H, W, 3]`` u8 array; ``'yuv420'`` a tuple of planar
+    ``(y [N, H, W], cb, cr [N, H/2, W/2])`` u8, half the bytes for the
+    host-to-device copy.  ``cache_images`` keeps decoded images in memory;
+    ``disk_cache_dir`` keeps them as ``.npy`` files keyed by
+    sha1(line | file mtime | canvas | max_boxes), written atomically.
+    """
+
+    def __init__(self, lines: Sequence[str], target_hw: Tuple[int, int],
+                 max_boxes: int = 100, num_workers: int = 8,
+                 use_native: bool = True, cache_images: bool = False,
+                 disk_cache_dir: Optional[str] = None,
+                 link_format: str = 'rgb'):
+        self.lines = list(lines)
+        self.target_hw = tuple(target_hw)
+        self.max_boxes = max_boxes
+        self.num_workers = num_workers
+        if link_format not in ('rgb', 'yuv420'):
+            raise ValueError(f'unknown link_format {link_format!r}')
+        self.link_format = link_format
+        self.pool = ThreadPoolExecutor(max_workers=num_workers)
+        if use_native:
+            from .native import native_available
+            self.use_native = native_available()
+        else:
+            self.use_native = False
+        self.cache_images = cache_images
+        self._cache = {} if cache_images else None
+        self.disk_cache_dir = disk_cache_dir
+        if disk_cache_dir:
+            os.makedirs(disk_cache_dir, exist_ok=True)
+
+    def _disk_key(self, line: str, hw: Tuple[int, int]) -> str:
+        path = line.split()[0]
+        try:
+            mtime = os.stat(path).st_mtime_ns
+        except OSError:
+            mtime = -1
+        raw = f'{line}|{mtime}|{hw[0]}x{hw[1]}|{self.max_boxes}'
+        if self.link_format != 'rgb':
+            raw += f'|{self.link_format}'
+        return hashlib.sha1(raw.encode()).hexdigest()
+
+    @property
+    def _part_suffixes(self) -> Tuple[str, ...]:
+        if self.link_format == 'yuv420':
+            return ('.y.npy', '.cb.npy', '.cr.npy')
+        return ('.img.npy',)
+
+    def _disk_read(self, key: str):
+        base = os.path.join(self.disk_cache_dir, key)
+        try:
+            parts = tuple(np.asarray(np.load(base + sfx, mmap_mode='r'))
+                          for sfx in self._part_suffixes)
+            boxes = np.load(base + '.box.npy')
+            return parts, boxes
+        except (OSError, ValueError):
+            return None
+
+    def _disk_write(self, key: str, parts: Tuple[np.ndarray, ...],
+                    boxes: np.ndarray):
+        base = os.path.join(self.disk_cache_dir, key)
+        try:
+            pairs = list(zip(self._part_suffixes, parts))
+            for suffix, arr in pairs + [('.box.npy', boxes)]:
+                # np.save appends '.npy' unless the name ends with it
+                tmp = base + f'.tmp{os.getpid()}{suffix}'
+                np.save(tmp, arr)
+                os.replace(tmp, base + suffix)   # atomic across processes
+        except OSError:
+            pass   # the cache is best-effort; the decode succeeded
+
+    def _to_parts(self, canvas: np.ndarray) -> Tuple[np.ndarray, ...]:
+        if self.link_format == 'yuv420':
+            from ..ops.yuv import rgb_to_yuv420_np
+            return rgb_to_yuv420_np(canvas)
+        return (canvas,)
+
+    def _load_batch_pil(self, batch_lines, hw):
+        def safe(line):
+            try:
+                img, bx = load_and_letterbox(line, hw, self.max_boxes)
+            except (OSError, ValueError):
+                img = np.full((*hw, 3), 128, np.uint8)
+                bx = np.zeros((self.max_boxes, 5), np.float32)
+            return self._to_parts(img), bx
+        return list(self.pool.map(safe, batch_lines))
+
+    def _alloc_parts(self, n: int, hw: Tuple[int, int]):
+        # zeros (calloc), not np.empty: fresh pages faulted while a
+        # device copy is in flight are slow (native/fastloader.cpp)
+        if self.link_format == 'yuv420':
+            return (np.zeros((n, *hw), np.uint8),
+                    np.zeros((n, hw[0] // 2, hw[1] // 2), np.uint8),
+                    np.zeros((n, hw[0] // 2, hw[1] // 2), np.uint8))
+        return (np.zeros((n, *hw, 3), np.uint8),)
+
+    def _unwrap(self, parts):
+        """An rgb batch stays a bare array; a yuv420 batch a tuple."""
+        return parts if self.link_format == 'yuv420' else parts[0]
+
+    def load_batch(self, batch_lines: Sequence[str],
+                   target_hw: Optional[Tuple[int, int]] = None):
+        """Returns (images, boxes [N, max_boxes, 5] in canvas pixels)."""
+        hw = target_hw or self.target_hw
+        if self._cache is None:
+            parts, boxes = self._load_batch_disk_or_decode(batch_lines, hw)
+            return self._unwrap(parts), boxes
+        missing = [l for l in batch_lines if (l, hw) not in self._cache]
+        if missing:
+            parts, boxes = self._load_batch_disk_or_decode(missing, hw)
+            for i, line in enumerate(missing):
+                self._cache[(line, hw)] = (
+                    tuple(pt[i] for pt in parts), boxes[i])
+        out = self._alloc_parts(len(batch_lines), hw)
+        boxes = np.zeros((len(batch_lines), self.max_boxes, 5), np.float32)
+        for i, l in enumerate(batch_lines):
+            img_parts, bx = self._cache[(l, hw)]
+            for buf, pt in zip(out, img_parts):
+                buf[i] = pt
+            boxes[i] = bx
+        return self._unwrap(out), boxes
+
+    def _load_batch_disk_or_decode(self, batch_lines: Sequence[str],
+                                   hw: Tuple[int, int]):
+        """Returns (parts tuple of batch arrays, boxes)."""
+        if not self.disk_cache_dir:
+            return self._load_batch_uncached(batch_lines, hw)
+        keys = [self._disk_key(l, hw) for l in batch_lines]
+        hits = list(self.pool.map(self._disk_read, keys))
+        out = self._alloc_parts(len(batch_lines), hw)
+        boxes = np.zeros((len(batch_lines), self.max_boxes, 5), np.float32)
+        miss_idx = [i for i, h in enumerate(hits) if h is None]
+        for i, h in enumerate(hits):
+            if h is not None:
+                for buf, pt in zip(out, h[0]):
+                    buf[i] = pt
+                boxes[i] = h[1]
+        if miss_idx:
+            m_parts, m_boxes = self._load_batch_uncached(
+                [batch_lines[i] for i in miss_idx], hw)
+            for j, i in enumerate(miss_idx):
+                for buf, pt in zip(out, m_parts):
+                    buf[i] = pt[j]
+                boxes[i] = m_boxes[j]
+            list(self.pool.map(
+                lambda args: self._disk_write(*args),
+                [(keys[i], tuple(pt[j] for pt in m_parts), m_boxes[j])
+                 for j, i in enumerate(miss_idx)]))
+        return out, boxes
+
+    def _load_batch_uncached(self, batch_lines: Sequence[str],
+                             hw: Tuple[int, int]):
+        """Returns (parts tuple of batch arrays, boxes)."""
+        parsed = [parse_annotation_line(l) for l in batch_lines]
+        paths = [p for p, _ in parsed]
+        jpeg = all(p.lower().endswith(('.jpg', '.jpeg')) for p in paths)
+        if self.use_native and jpeg and paths:
+            from . import native
+            if self.link_format == 'yuv420':
+                ys, cbs, crs, metas, ok = native.load_letterbox_yuv_batch(
+                    paths, hw, nthreads=self.num_workers)
+                parts = (ys, cbs, crs)
+            else:
+                images, metas, ok = native.load_letterbox_batch(
+                    paths, hw, nthreads=self.num_workers)
+                parts = (images,)
+            boxes = np.zeros((len(paths), self.max_boxes, 5), np.float32)
+            for i, (_, b) in enumerate(parsed):
+                if ok[i]:
+                    boxes[i] = _letterbox_boxes(b, self.max_boxes,
+                                                metas[i, 0], metas[i, 1],
+                                                metas[i, 2])
+            # PIL retry for any slot the native decoder rejected
+            bad = np.where(~ok)[0]
+            if len(bad):
+                results = self._load_batch_pil(
+                    [batch_lines[i] for i in bad], hw)
+                for j, i in enumerate(bad):
+                    for buf, pt in zip(parts, results[j][0]):
+                        buf[i] = pt
+                    boxes[i] = results[j][1]
+            return parts, boxes
+        results = self._load_batch_pil(batch_lines, hw)
+        parts = self._alloc_parts(len(results), hw)
+        boxes = np.zeros((len(results), self.max_boxes, 5), np.float32)
+        for i, (img_parts, bx) in enumerate(results):
+            for buf, pt in zip(parts, img_parts):
+                buf[i] = pt
+            boxes[i] = bx
+        return parts, boxes
+
+    def close(self):
+        self.pool.shutdown(wait=False)

@@ -1,14 +1,14 @@
-"""MultiGridInference: image and directory inference on the card.
+"""MultiGridInference: image, directory, file-list, video and camera
+inference on the card.
 
 Counterpart of ``multigriddet_tpu/inference/engine.py``.  Forward, decode
 and NMS run as one fused step on the device (``make_infer_step``); image
-decoding, letterboxing, the letterbox inverse of the (at most
-``max_boxes``) detections and drawing stay on the host.  Runs on
-``cuda`` unless ``device='cpu'`` is passed.
-
-Not ported yet (each raises ``NotImplementedError`` when a config asks
-for it): video and camera input, the native-loader file path with the
-yuv420 link format, and host WBF (ROADMAP Queue 1 item 5).
+decoding, letterboxing, host WBF (``detection.use_wbf``), the letterbox
+inverse of the (at most ``max_boxes``) detections and drawing stay on the
+host.  ``detection.link_format: yuv420`` sends the file path's pixels as
+planar YCbCr 4:2:0, half the bytes of RGB.  Runs on ``cuda`` unless
+``device='cpu'`` is passed.  Pillow and OpenCV are imported where they
+are used.
 """
 
 from __future__ import annotations
@@ -30,7 +30,11 @@ from ..training.steps import fetch_detections, make_infer_step
 from ..utils.visualization import draw_boxes, get_colors
 
 _IMG_EXTS = ('.jpg', '.jpeg', '.png', '.bmp', '.webp')
-_NOT_PORTED = 'not ported yet (ROADMAP Queue 1 item 5)'
+
+
+def _empty_result():
+    return (np.zeros((0, 4), np.float32), np.zeros((0,), np.int32),
+            np.zeros((0,), np.float32))
 
 
 class MultiGridInference:
@@ -48,14 +52,13 @@ class MultiGridInference:
         # xla | pallas (greedy kernel) | pallas_fused (pop-max kernel)
         self.nms_backend = det.get('nms_backend', 'xla')
         self.pre_nms_top_k = int(det.get('pre_nms_top_k', 1024))
-        if det.get('use_wbf', False):
-            raise NotImplementedError(f'detection.use_wbf: host WBF is '
-                                      f'{_NOT_PORTED}')
-        link_format = str(det.get('link_format', 'rgb'))
-        if link_format != 'rgb':
-            raise NotImplementedError(
-                f'detection.link_format={link_format!r}: the native '
-                f'yuv420 file path is {_NOT_PORTED}')
+        # WBF replaces NMS: the step returns the confidence-filtered top
+        # pre_nms_top_k candidates and the host fuses them
+        self.use_wbf = bool(det.get('use_wbf', False))
+        self.wbf_mode = str(det.get('wbf_mode', 'paper'))   # or 'reference'
+        # 'yuv420': the file path sends planar 4:2:0 (half the bytes);
+        # 'rgb' keeps serving byte-exact
+        self.link_format = str(det.get('link_format', 'rgb'))
         self._load_model()
 
     def _load_model(self):
@@ -69,23 +72,41 @@ class MultiGridInference:
         self.class_names = self.spec.get('class_names') or [
             str(i) for i in range(self.spec['num_classes'])]
         self.colors = get_colors(len(self.class_names))
-        self._infer = make_infer_step(
-            self.model, self.spec['anchors'], self.input_hw,
-            confidence=self.confidence, nms_threshold=self.nms_threshold,
-            nms_method=self.nms_method, use_iol=self.use_iol,
-            max_boxes=self.max_boxes, class_aware=self.class_aware,
-            nms_backend=self.nms_backend, pre_nms_top_k=self.pre_nms_top_k)
+        kw = dict(confidence=self.confidence,
+                  nms_threshold=self.nms_threshold,
+                  nms_method=self.nms_method, use_iol=self.use_iol,
+                  max_boxes=self.max_boxes, class_aware=self.class_aware,
+                  nms_backend=self.nms_backend,
+                  pre_nms_top_k=self.pre_nms_top_k, use_wbf=self.use_wbf)
+        self._infer = make_infer_step(self.model, self.spec['anchors'],
+                                      self.input_hw, **kw)
+        self._infer_yuv = None
+        if self.link_format == 'yuv420':
+            self._infer_yuv = make_infer_step(
+                self.model, self.spec['anchors'], self.input_hw,
+                link_format='yuv420', **kw)
+
+    def _host_fuse(self, boxes, classes, scores):
+        """Apply WBF to one image's candidate pool (canvas pixels)."""
+        if self.use_wbf:
+            from ..postprocess.wbf import fuse_and_cap
+            boxes, classes, scores = fuse_and_cap(
+                boxes, classes, scores, iou_thr=self.nms_threshold,
+                mode=self.wbf_mode, max_out=self.max_boxes)
+        return boxes, classes, scores
 
     # ------------------------------------------------------------------
+
+    def _to_device(self, array) -> torch.Tensor:
+        if isinstance(array, np.ndarray) and not array.flags.writeable:
+            array = array.copy()   # letterboxed PIL arrays are read-only
+        return torch.as_tensor(array).to(self.device, non_blocking=True)
 
     def infer_batch(self, batch):
         """Run the fused step on one ``[B, H, W, 3]`` uint8 batch (numpy or
         tensor).  Returns the device tuple ``(boxes, classes, scores,
         valid)`` without waiting for it; boxes are canvas pixels."""
-        if isinstance(batch, np.ndarray) and not batch.flags.writeable:
-            batch = batch.copy()   # letterboxed PIL arrays are read-only
-        x = torch.as_tensor(batch).to(self.device, non_blocking=True)
-        return self._infer(x)
+        return self._infer(self._to_device(batch))
 
     def detect(self, image):
         """Detect on one PIL image.
@@ -96,7 +117,7 @@ class MultiGridInference:
         arr, _, _, _ = letterbox_image(image.convert('RGB'), self.input_hw)
         outs = self.infer_batch(arr[None])
         bxs, cls, scs, valid = (a[0] for a in fetch_detections(outs))
-        bxs, cls, scs = bxs[valid], cls[valid], scs[valid]
+        bxs, cls, scs = self._host_fuse(bxs[valid], cls[valid], scs[valid])
         if len(bxs):
             bxs = canvas_boxes_to_image(bxs, (image.size[1], image.size[0]),
                                         self.input_hw)
@@ -138,17 +159,108 @@ class MultiGridInference:
         ``sizes`` rows are (orig_h, orig_w), or None for a slot whose input
         failed to load (an empty result)."""
         bxs, cls, scs, valid = fetch_detections(outs)
-        empty = (np.zeros((0, 4), np.float32), np.zeros((0,), np.int32),
-                 np.zeros((0,), np.float32))
         for i, size in enumerate(sizes):
             if size is None:
-                results.append(empty)
+                results.append(_empty_result())
                 continue
             keep = valid[i]
-            b, c, s = bxs[i][keep], cls[i][keep], scs[i][keep]
+            b, c, s = self._host_fuse(bxs[i][keep], cls[i][keep],
+                                      scs[i][keep])
             if len(b):
                 b = canvas_boxes_to_image(b, size, self.input_hw)
             results.append((b, c, s))
+
+    def _detect_files_pil(self, paths: List[str], batch_size: int,
+                          pipeline_depth: int):
+        from PIL import Image
+
+        imgs, good_idx = [], []
+        for i, p in enumerate(paths):
+            try:
+                with Image.open(p) as im:
+                    imgs.append(im.convert('RGB'))
+                good_idx.append(i)
+            except OSError:
+                pass   # unreadable or corrupt file -> empty result slot
+        results = [_empty_result()] * len(paths)
+        for i, r in zip(good_idx, self.detect_batch(imgs, batch_size,
+                                                    pipeline_depth)):
+            results[i] = r
+        return results
+
+    def detect_files(self, paths: List[str], batch_size: int = 16,
+                     num_workers: int = 8, pipeline_depth: int = 4):
+        """File-based batched detection on the native loader.
+
+        The native loader (``data/native.py``) decodes JPEGs and
+        letterboxes on native threads straight into the fused step, in
+        planar 4:2:0 with ``link_format: yuv420``; a slot it rejects is
+        retried with PIL, and the last short chunk is padded to
+        ``batch_size``.  A list that is not all JPEG, or a host without
+        the native loader, goes through :meth:`detect_batch` instead.
+        Pipelined like :meth:`detect_batch`.  Returns (boxes, classes,
+        scores) per path in original pixels; unreadable files give empty
+        results.
+        """
+        from ..data import native
+
+        all_jpeg = all(p.lower().endswith(('.jpg', '.jpeg')) for p in paths)
+        if not all_jpeg or not native.native_available():
+            return self._detect_files_pil(paths, batch_size, pipeline_depth)
+        use_yuv = (self._infer_yuv is not None
+                   and self.input_hw[0] % 2 == 0
+                   and self.input_hw[1] % 2 == 0)
+        results: list = []
+        pending: deque = deque()
+        for start in range(0, len(paths), batch_size):
+            chunk = paths[start:start + batch_size]
+            if use_yuv:
+                ys, cbs, crs, metas, ok = native.load_letterbox_yuv_batch(
+                    chunk, self.input_hw, num_workers)
+                parts = [ys, cbs, crs]
+            else:
+                imgs, metas, ok = native.load_letterbox_batch(
+                    chunk, self.input_hw, num_workers)
+                parts = [imgs]
+            if len(chunk) < batch_size:    # one shape for every chunk
+                parts = [np.concatenate(
+                    [p, np.zeros((batch_size - len(chunk), *p.shape[1:]),
+                                 np.uint8)], axis=0) for p in parts]
+            sizes = [(int(m[4]), int(m[3])) if good else None
+                     for m, good in zip(metas, ok)]
+            for i in np.where(~ok)[0]:
+                self._retry_slot_pil(chunk[i], i, parts, sizes, use_yuv)
+            if use_yuv:
+                outs = self._infer_yuv(*(self._to_device(p) for p in parts))
+            else:
+                outs = self.infer_batch(parts[0])
+            pending.append((outs, sizes))
+            if len(pending) > max(pipeline_depth, 0):
+                self._postprocess_batch(*pending.popleft(), results)
+        while pending:
+            self._postprocess_batch(*pending.popleft(), results)
+        return results
+
+    def _retry_slot_pil(self, path, i, parts, sizes, use_yuv):
+        """Decode slot ``i`` with PIL after the native loader rejected it
+        (PNG/BMP/WebP content under a .jpg name); an unreadable file keeps
+        its empty result."""
+        from PIL import Image
+
+        try:
+            with Image.open(path) as im:
+                rgb = im.convert('RGB')
+                iw, ih = rgb.size
+                arr, _, _, _ = letterbox_image(rgb, self.input_hw)
+        except OSError:
+            return
+        if use_yuv:
+            from ..ops.yuv import rgb_to_yuv420_np
+            for p, plane in zip(parts, rgb_to_yuv420_np(arr)):
+                p[i] = plane
+        else:
+            parts[0][i] = arr
+        sizes[i] = (ih, iw)
 
     def predict_image(self, path: str, output_dir: Optional[str] = None,
                       show: bool = False):
@@ -178,35 +290,25 @@ class MultiGridInference:
     def predict_directory(self, directory: str,
                           output_dir: Optional[str] = None,
                           batch_size: int = 16):
-        """Annotate every image in a directory through :meth:`detect_batch`;
-        unreadable files give empty detections with a warning."""
+        """Annotate every image in a directory; detection runs through the
+        pipelined :meth:`detect_files`.  Unreadable files give empty
+        detections with a warning."""
         from PIL import Image
 
         paths = sorted(
             p for p in glob.glob(os.path.join(directory, '*'))
             if p.lower().endswith(_IMG_EXTS))
-        rgbs: List[Optional[np.ndarray]] = []
-        for p in paths:
+        t0 = time.time()
+        detections = self.detect_files(paths, batch_size=batch_size)
+        dt = time.time() - t0
+        results = []
+        for p, (boxes, classes, scores) in zip(paths, detections):
+            print(f'{os.path.basename(p)}: {len(boxes)} objects')
             try:
                 with Image.open(p) as im:
-                    rgbs.append(np.asarray(im.convert('RGB')))
+                    rgb = np.asarray(im.convert('RGB'))
             except OSError as exc:
-                print(f'WARNING: could not read {p}: {exc}')
-                rgbs.append(None)
-        good = [i for i, a in enumerate(rgbs) if a is not None]
-        t0 = time.time()
-        found = self.detect_batch([Image.fromarray(rgbs[i]) for i in good],
-                                  batch_size=batch_size)
-        dt = time.time() - t0
-        detections = [(np.zeros((0, 4), np.float32),
-                       np.zeros((0,), np.int32),
-                       np.zeros((0,), np.float32))] * len(paths)
-        for i, r in zip(good, found):
-            detections[i] = r
-        results = []
-        for p, rgb, (boxes, classes, scores) in zip(paths, rgbs, detections):
-            print(f'{os.path.basename(p)}: {len(boxes)} objects')
-            if rgb is None:
+                print(f'WARNING: could not read {p} for annotation: {exc}')
                 results.append((None, (boxes, classes, scores)))
                 continue
             annotated = draw_boxes(rgb, boxes, classes, scores,
@@ -221,8 +323,119 @@ class MultiGridInference:
                   f'({len(paths)/max(dt, 1e-9):.1f} img/s detection)')
         return results
 
+    def predict_video(self, source, output_path: Optional[str] = None,
+                      show: bool = False, max_frames: Optional[int] = None,
+                      pipeline_depth: int = 2, batch_size: int = 8,
+                      resolution: Optional[Tuple[int, int]] = None):
+        """Video (or camera index) loop through OpenCV.
+
+        Frames go ``batch_size`` at a time through one fused step, and a
+        chunk's results are fetched only after ``pipeline_depth`` further
+        chunks were sent, so host decode and letterboxing overlap the
+        device.  Output lags by up to ``(pipeline_depth + 1) * batch_size``
+        frames; ``batch_size=1, pipeline_depth=0`` is a live loop (the
+        default of :meth:`predict_camera`).  Returns the frame count.
+        """
+        import cv2
+
+        cap = cv2.VideoCapture(source)
+        if not cap.isOpened():
+            raise IOError(f'cannot open video source {source!r}')
+        if resolution:   # camera capture size (w, h); files ignore it
+            cap.set(cv2.CAP_PROP_FRAME_WIDTH, int(resolution[0]))
+            cap.set(cv2.CAP_PROP_FRAME_HEIGHT, int(resolution[1]))
+        writer = None
+        if output_path:
+            video_cfg = self.config.get('video', {}) or {}
+            fps = video_cfg.get('fps') or cap.get(cv2.CAP_PROP_FPS) or 25
+            fourcc = cv2.VideoWriter_fourcc(*video_cfg.get('fourcc', 'mp4v'))
+            w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH))
+            h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT))
+            writer = cv2.VideoWriter(output_path, fourcc, fps, (w, h))
+        frames = 0
+        stop = False
+        batch_size = max(batch_size, 1)
+        pending: deque = deque()
+        batch = np.zeros((batch_size, *self.input_hw, 3), np.uint8)
+        rgbs: list = []
+
+        def dispatch():
+            nonlocal batch
+            pending.append((self.infer_batch(batch), list(rgbs)))
+            rgbs.clear()
+            # the sent chunk keeps its buffer: the next chunk gets a
+            # fresh one instead of overwriting pixels still in flight
+            batch = np.zeros((batch_size, *self.input_hw, 3), np.uint8)
+
+        def flush_one():
+            nonlocal stop
+            outs, chunk_rgbs = pending.popleft()
+            bxs, cls, scs, valid = fetch_detections(outs)
+            for i, rgb in enumerate(chunk_rgbs):
+                b, c, s = self._host_fuse(bxs[i][valid[i]],
+                                          cls[i][valid[i]],
+                                          scs[i][valid[i]])
+                if len(b):
+                    b = canvas_boxes_to_image(b, rgb.shape[:2],
+                                              self.input_hw)
+                annotated = draw_boxes(rgb, b, c, s, self.class_names,
+                                       self.colors)
+                bgr = cv2.cvtColor(annotated, cv2.COLOR_RGB2BGR)
+                if writer is not None:
+                    writer.write(bgr)
+                if show:  # pragma: no cover
+                    cv2.imshow('MultiGridDet', bgr)
+                    if cv2.waitKey(1) & 0xFF == ord('q'):
+                        stop = True
+                        return
+
+        t0 = time.time()
+        try:
+            while not stop:
+                ok, frame = cap.read()
+                if not ok or (max_frames and frames >= max_frames):
+                    break
+                rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                # cv2 letterbox, the geometry of letterbox_image
+                th, tw = self.input_hw
+                ih, iw = rgb.shape[:2]
+                s = min(tw / iw, th / ih)
+                nw, nh = int(round(iw * s)), int(round(ih * s))
+                px, py = (tw - nw) // 2, (th - nh) // 2
+                slot = batch[len(rgbs)]
+                slot[:] = 128
+                slot[py:py + nh, px:px + nw] = cv2.resize(
+                    rgb, (nw, nh), interpolation=cv2.INTER_CUBIC)
+                rgbs.append(rgb)
+                frames += 1
+                if len(rgbs) == batch_size:
+                    dispatch()
+                    if len(pending) > max(pipeline_depth, 0):
+                        flush_one()
+            if rgbs and not stop:    # the last short chunk (padded slots
+                dispatch()           # are computed but never emitted)
+            while pending and not stop:
+                flush_one()
+        finally:
+            cap.release()
+            if writer is not None:
+                writer.release()
+        dt = time.time() - t0
+        if frames:
+            print(f'{frames} frames in {dt:.1f}s ({frames/dt:.1f} FPS)')
+        return frames
+
+    def predict_camera(self, device_id: int = 0, show: bool = True,
+                       max_frames: Optional[int] = None):
+        """Live camera loop: no batching or pipelining, least latency;
+        ``camera.resolution`` sets the capture size."""
+        cam = self.config.get('camera', {}) or {}
+        return self.predict_video(device_id, None, show, max_frames,
+                                  pipeline_depth=0, batch_size=1,
+                                  resolution=cam.get('resolution'))
+
     def run(self):
-        """Dispatch on ``input.type``: image or directory."""
+        """Dispatch on ``input.type``: image, directory, video or camera."""
         input_cfg = self.config.get('input', {}) or {}
         output_cfg = self.config.get('output', {}) or {}
         out_dir = (output_cfg.get('output_dir', 'output')
@@ -234,6 +447,25 @@ class MultiGridInference:
                 source, out_dir, show=output_cfg.get('show_result', False))
         if kind == 'directory':
             return self.predict_directory(source, out_dir)
-        if kind in ('video', 'camera'):
-            raise NotImplementedError(f'input.type={kind!r} is {_NOT_PORTED}')
+        if kind == 'video':
+            out_path = None
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+                out_path = os.path.join(
+                    out_dir, 'annotated_' + os.path.basename(str(source)))
+            video_cfg = self.config.get('video', {}) or {}
+            return self.predict_video(
+                source, out_path,
+                show=bool(output_cfg.get('show_result', False)),
+                pipeline_depth=int(video_cfg.get('pipeline_depth', 2)),
+                batch_size=int(video_cfg.get('batch_size', 8)))
+        if kind == 'camera':
+            # a numeric input.source ("--input 1") is the device id;
+            # camera.device_id is the config file's spelling
+            cam = self.config.get('camera', {}) or {}
+            device = (int(source) if source is not None
+                      and str(source).isdigit()
+                      else int(cam.get('device_id', 0)))
+            return self.predict_camera(
+                device, show=bool(output_cfg.get('show_result', True)))
         raise ValueError(f'unknown input type {kind!r}')

@@ -142,18 +142,28 @@ def test_engine_on_cpu_from_config(config, tmp_path):
     assert annotated.shape == (48, 80, 3)
 
 
-def test_engine_bf16_default_and_unported_modes(config):
+def test_engine_bf16_default_and_unported_modes(config, monkeypatch):
+    """bfloat16 by default; the modes the first slice left out (host WBF,
+    the yuv420 file link, video and camera) now run."""
     cfg = dict(config, environment={})
     engine = MultiGridInference(cfg, device='cpu')
     assert engine.compute_dtype == torch.bfloat16
     outs = engine.infer_batch(np.zeros((1, 64, 64, 3), np.uint8))
     assert outs[2].dtype == torch.float32 and outs[0].shape == (1, 10, 4)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        MultiGridInference(dict(config, detection={'use_wbf': True}),
-                           device='cpu')
+    wbf = MultiGridInference(
+        dict(config, detection=dict(config['detection'], use_wbf=True,
+                                    link_format='yuv420')), device='cpu')
+    assert wbf.use_wbf and wbf._infer_yuv is not None
+    img = Image.fromarray(np.random.RandomState(2).randint(
+        0, 255, (48, 80, 3)).astype('uint8'))
+    boxes, classes, scores = wbf.detect(img)
+    assert 0 < len(boxes) <= 10 and len(classes) == len(scores)
+    seen = []
+    monkeypatch.setattr(engine, 'predict_video',
+                        lambda source, out_path=None, **kw: seen.append(
+                            (source, kw['batch_size'])) or 0)
     engine.config = dict(config, input={'type': 'video', 'source': 'x.mp4'})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        engine.run()
+    assert engine.run() == 0 and seen == [('x.mp4', 8)]
 
 
 def test_entry_point_needs_a_gpu_unless_cpu_is_asked(config, monkeypatch):
