@@ -43,6 +43,26 @@
    matcher and numpy; one ``detection.use_wbf`` serve batch equal to
    ``fuse_and_cap`` over its candidates; eval images/s and metrics seconds
    per backend, and the pop-max kernel timed at 500 keeps.
+7. Train: (a) one fused train step of ``multigriddet_darknet`` at full
+   width in float32 (TF32 off), b2 @416, on the card and on the CPU from
+   the same seeded weights and batch, with the loss settings of
+   ``configs/train_config.yaml``: the encoder's discrete fields equal and
+   its offsets and the images within 1e-6; loss terms and running
+   statistics within 1e-4 relative; the step in float64 from identical
+   images and targets, every gradient within 1e-6 of its tensor's largest
+   |grad| (in float32 the gradients are rounding noise at this init,
+   reported beside it); (b)
+   ``MultiGridTrainer(config).train()`` at 608, bfloat16, b8, Adam 1e-4
+   with a 1-epoch cosine warmup, augmentation off,
+   the yuv420 link, 2 epochs of 6 steps over 48 synthetic letterboxed
+   frames with 1-30 boxes each (fed through the loader's ``.npy`` disk
+   cache: the card's host has no Pillow) and validation on 16: finite
+   history, no NMS launch, a checkpoint restored into a fresh state, and
+   ``final_model.msgpack`` served by ``MultiGridInference``; (c) 40 fused
+   steps on one batch must halve the loss; (d) the fused step's time,
+   img/s and peak memory at b8 @608 bf16, and its parts alone (encode,
+   forward + loss, backward, optimizer) with CUDA events, 20 steps after
+   3 warm-up, on a resident batch, and the ops the encoder launches.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -820,6 +840,529 @@ def phase_evaluate(serve_pool, smi):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+# the loss settings of configs/train_config.yaml (the card's host has no
+# PyYAML): option 2, label smoothing 0.01, the consensus loss on
+TRAIN_LOSS = {
+    'coord_scale': 5.0, 'object_scale': 1.0, 'no_object_scale': 0.5,
+    'class_scale': 1.0, 'anchor_scale': 1.0, 'ignore_thresh': 0.5,
+    'use_iou_aware_objectness': False, 'iou_objectness_power': 1.5,
+    'iou_objectness_ratio': 1.0, 'trainable_nms_weight': 0.0,
+    'trainable_nms_power': 2.0, 'use_consensus_loss': True,
+    'consensus_kernel_size': 3, 'consensus_iou_power': 1.5,
+    'consensus_min_iou': 0.001, 'consensus_coord_scale': 0.5,
+    'consensus_obj_scale': 0.5, 'consensus_class_scale': 0.3,
+    'consensus_stop_gradient': True, 'consensus_center_tolerance': 0.0001}
+TRAIN_MAX_BOXES = 100                 # augmentation.max_boxes_per_image
+PARITY_B, PARITY_HW = 2, (416, 416)
+# card vs CPU with TF32 off.  The device stage: the encoder's discrete
+# fields exact, offsets and log-ratios, and the [0, 1] images, within 1e-6.
+# The float32 fused step: loss terms relative, running statistics relative
+# (of max(1, |v|)).  Gradients in float64 from identical images and
+# targets, each of its tensor's largest |grad|: at this init a conv before
+# train-mode BatchNorm gets the small remainder of a large common gradient
+# (the no-object term pushes every cell's objectness down) once the
+# backward subtracts the batch means, which multiplies any difference
+# upstream by ~1e6: the CPU's own float32 gradients lie up to 1e-1 from
+# float64 (reported), and images that differ in the last float32 bit (the
+# yuv420 inverse on each device) move float64 gradients by ~1e-3
+ENC_ATOL, LOSS_RTOL, STAT_RTOL, GRAD64_RTOL, GRAD_RTOL = (1e-6, 1e-4, 1e-4,
+                                                          1e-6, 1e-3)
+TRAIN_FRAMES, VAL_FRAMES, TRAIN_EPOCHS = 48, 16, 2
+OVERFIT_STEPS, OVERFIT_LR = 40, 1e-3
+TIMED_STEPS, WARMUP_STEPS = 20, 3
+
+
+def train_config(root, hw=None, mixed=True, lr=1e-4, schedule=None):
+    """``configs/train_config.yaml`` on ``multigriddet_darknet`` (80
+    classes, COCO anchors), b8, Adam, with augmentation off, a 1-epoch
+    warmup and its files under ``root``; frames come from the loader's
+    ``.npy`` disk cache."""
+    return {
+        'model': {'type': 'preset', 'preset': {
+            'architecture': 'multigriddet_darknet',
+            'num_classes': NUM_CLASSES, 'input_shape': [*(hw or HW), 3],
+            'anchors_path': os.path.join(REPO, 'configs',
+                                         'yolov3_coco_anchor.txt')}},
+        'data': {'train_annotation': os.path.join(root, 'train.txt'),
+                 'val_annotation': os.path.join(root, 'val.txt')},
+        'environment': {'mixed_precision': mixed},
+        'data_loader': {'num_workers': 4, 'link_format': 'auto',
+                        'disk_cache_dir': os.path.join(root, 'cache')},
+        'training': {
+            'batch_size': B, 'epochs': TRAIN_EPOCHS, 'learning_rate': lr,
+            'transfer_epochs': 0, 'freeze_level': 1, 'loss_option': 2,
+            'label_smoothing': 0.01, 'loss': dict(TRAIN_LOSS),
+            'loss_normalization': ['batch'], 'class_weights': None,
+            'augmentation': {'enabled': False, 'rescale_interval': -1,
+                             'max_boxes_per_image': TRAIN_MAX_BOXES}},
+        'optimizer': {'type': 'adam', 'learning_rate': lr, 'beta_1': 0.9,
+                      'beta_2': 0.999, 'epsilon': 1e-7},
+        'lr_schedule': schedule or {
+            'type': 'cosine_annealing', 'warmup_epochs': 1,
+            'warmup_lr_factor': 0.01, 'min_lr': 1e-7},
+        'callbacks': {
+            'checkpoint': {'save_best_only': True, 'monitor': 'val_loss',
+                           'save_dir': os.path.join(root, 'checkpoints')},
+            'early_stopping': {'monitor': 'val_loss', 'patience': 10}},
+        'resume': {'enabled': False},
+        'output': {'log_dir': os.path.join(root, 'logs'),
+                   'model_dir': os.path.join(root, 'models'),
+                   'save_frequency': 1},
+    }
+
+
+def train_frames(count, seed, hw=None):
+    """Synthetic 640x480 frames with 1-30 boxes each, letterboxed onto the
+    gray ``hw`` canvas as the loader does: (annotation lines of the frames'
+    own pixels, canvases u8, canvas boxes ``[count, 100, 5]``).  Each box
+    is painted in its class's colour over a smooth random picture."""
+    import numpy as np
+    from multigriddet_tpu_torch.data.annotations import _letterbox_boxes
+    rng = np.random.RandomState(seed)
+    hw = hw or HW
+    fh, fw = FRAME_HW
+    scale = min(hw[1] / fw, hw[0] / fh)
+    nw, nh = int(round(fw * scale)), int(round(fh * scale))
+    pad_x, pad_y = (hw[1] - nw) // 2, (hw[0] - nh) // 2
+    colours = rng.randint(0, 256, (NUM_CLASSES, 3))
+    lines, canvases, boxes = [], [], []
+    for i in range(count):
+        n = rng.randint(1, 31)
+        wh = rng.uniform(16, 320, (n, 2))
+        x1 = rng.uniform(0, fw - wh[:, 0])
+        y1 = rng.uniform(0, fh - wh[:, 1])
+        cls = rng.randint(0, NUM_CLASSES, n)
+        frame = np.stack([x1, y1, x1 + wh[:, 0], y1 + wh[:, 1], cls],
+                         1).astype(np.float32)
+        lines.append(f'frames/f{seed}_{i:03d}.jpg ' + ' '.join(
+            f'{a:.1f},{b:.1f},{c:.1f},{d:.1f},{int(k)}'
+            for a, b, c, d, k in frame))
+        bx = _letterbox_boxes(frame.round(1), TRAIN_MAX_BOXES, scale, pad_x,
+                              pad_y)
+        low = rng.randint(0, 256, (nh // 16 + 1, nw // 16 + 1, 3))
+        pic = np.repeat(np.repeat(low, 16, 0), 16, 1)[:nh, :nw]
+        canvas = np.full((*hw, 3), 128, np.uint8)
+        canvas[pad_y:pad_y + nh, pad_x:pad_x + nw] = pic
+        for x1_, y1_, x2_, y2_, k in bx[:n]:
+            canvas[int(y1_):int(y2_), int(x1_):int(x2_)] = colours[int(k)]
+        canvases.append(canvas)
+        boxes.append(bx)
+    return lines, np.stack(canvases), np.stack(boxes)
+
+
+def write_frames(root, name, lines, canvases, boxes, link_format):
+    """The annotation file, and each frame in ``HostImageLoader``'s own
+    ``.npy`` disk cache, written by the loader's cache writer (the card's
+    host has no Pillow to decode files)."""
+    from multigriddet_tpu_torch.data.annotations import HostImageLoader
+    lines = [os.path.join(root, ln) for ln in lines]
+    with open(os.path.join(root, name), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    loader = HostImageLoader(lines, HW, TRAIN_MAX_BOXES, num_workers=1,
+                             use_native=False,
+                             disk_cache_dir=os.path.join(root, 'cache'),
+                             link_format=link_format)
+    for line, canvas, bx in zip(lines, canvases, boxes):
+        loader._disk_write(loader._disk_key(line, HW),
+                           loader._to_parts(canvas), bx)
+    loader.close()
+
+
+def train_step_parity(dev):
+    """One train step of the full-width model (TF32 off) on the card and on
+    the CPU from the same weights and batch: the device stage (encoder and
+    images), the float32 fused step's loss terms and running statistics
+    after it, and, in float64 from identical images and targets, every
+    gradient (see ``GRAD64_RTOL``).  The float32 gradients' distance from
+    the CPU's float64 step is reported for both devices.  Returns the
+    report with the failed checks under ``failures``: the phase raises at
+    its end, after the rest of it has run and printed."""
+    import copy
+    import torch
+    from multigriddet_tpu_torch.config import (build_model_from_config,
+                                               create_optimizer_from_config,
+                                               loss_config_from_config)
+    from multigriddet_tpu_torch.data.pipeline import _device_stage
+    from multigriddet_tpu_torch.models import (load_flax_variables,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.ops.yuv import rgb_to_yuv420_np
+    from multigriddet_tpu_torch.training import (apply_freeze,
+                                                 create_train_state,
+                                                 make_fused_train_step,
+                                                 make_train_step)
+    cfg = train_config('', PARITY_HW, mixed=False, schedule={
+        'type': 'constant'})
+    model, spec = build_model_from_config(cfg)
+    load_flax_variables(model, *random_flax_variables(model, seed=SEED))
+    model64, _ = build_model_from_config(cfg, dtype=torch.float64)
+    model64.load_state_dict(model.state_dict())
+    model64.double()
+    _, canvases, boxes = train_frames(PARITY_B, SEED + 7, PARITY_HW)
+    parts = rgb_to_yuv420_np(canvases)
+    anchors, loss_cfg = spec['anchors'], loss_config_from_config(cfg)
+    host_step, _ = make_fused_train_step(anchors, NUM_CLASSES, loss_cfg,
+                                         aug_cfg={'enabled': False})
+    step64 = make_train_step(anchors, NUM_CLASSES, PARITY_HW, loss_cfg)
+
+    def run(base, d, batch=None):
+        """One step on ``d``: the fused step from the u8 parts, or the
+        train step from ``batch`` = (images, y_true)."""
+        m = copy.deepcopy(base).to(d)
+        state = create_train_state(m, create_optimizer_from_config(
+            cfg, apply_freeze(m, 0)))
+        t0 = time.perf_counter()
+        if batch is None:
+            _, metrics = host_step(
+                state, tuple(torch.from_numpy(p).to(d) for p in parts),
+                boxes, torch.Generator().manual_seed(SEED))
+        else:
+            _, metrics = step64(state, batch[0].to(d),
+                                [y.to(d) for y in batch[1]])
+        return ({k: float(v) for k, v in metrics.items()},
+                {n: p.grad.detach().cpu().double()
+                 for n, p in m.named_parameters()},
+                {k: v.detach().cpu() for k, v in m.state_dict().items()
+                 if 'running' in k},
+                time.perf_counter() - t0)
+
+    def stage(d):
+        images, y_true, _ = _device_stage(
+            tuple(torch.from_numpy(p).to(d) for p in parts), boxes, None,
+            {'enabled': False}, anchors, NUM_CLASSES, PARITY_HW, True)
+        return images.cpu(), [y.cpu() for y in y_true]
+
+    failures = []
+    (ci, cy), (gi, gy) = stage('cpu'), stage(dev)
+    enc_err = max(float((g[..., :4] - c[..., :4]).abs().max())
+                  for g, c in zip(gy, cy))
+    if not (all(torch.equal(g[..., 4:], c[..., 4:]) for g, c in zip(gy, cy))
+            and enc_err <= ENC_ATOL):
+        failures.append(f'encoder: discrete fields differ or offsets '
+                        f'{enc_err:.3e} > {ENC_ATOL}')
+    img_err = float((gi - ci).abs().max())
+    if not img_err <= ENC_ATOL:
+        failures.append(f'device-stage images: {img_err:.3e} > {ENC_ATOL}')
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, rg, _, rt = run(model64, 'cpu', (ci, cy))
+        _, g64, _, _ = run(model64, dev, (ci, cy))
+        cm, cg, cs, ct = run(model, 'cpu')
+        gm, gg, gs, _ = run(model, dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    if cm['num_positives'] != gm['num_positives']:
+        failures.append(f'num_positives: card {gm["num_positives"]} vs CPU '
+                        f'{cm["num_positives"]}')
+    loss_err = 0.0
+    for k in cm:
+        err = abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6)
+        loss_err = max(loss_err, err)
+        if not err <= LOSS_RTOL:
+            failures.append(f'loss term {k}: card {gm[k]!r} vs CPU {cm[k]!r}')
+    stat_err = max(float(((gs[k] - want).abs()
+                          / want.abs().clamp_min(1.0)).max())
+                   for k, want in cs.items())
+    if not stat_err <= STAT_RTOL:
+        failures.append(f'running statistics after the step: {stat_err:.3e}'
+                        f' relative > {STAT_RTOL}')
+
+    # each gradient's distance from the CPU's float64 step, as a share of
+    # its tensor's largest |grad|
+    def dist(grads):
+        return {n: float((grads[n] - ref).abs().max())
+                / max(float(ref.abs().max()), 1e-300)
+                for n, ref in rg.items()}
+    e64, e_card, e_cpu = dist(g64), dist(gg), dist(cg)
+    for n, err in e64.items():
+        if not err <= GRAD64_RTOL:
+            failures.append(f'float64 gradient of {n}: {err:.3e} of its '
+                            f'largest from the CPU\'s')
+    loose = sum(e > GRAD_RTOL for e in e_cpu.values())
+    log(f'[train] step parity b{PARITY_B} @{PARITY_HW[0]} (TF32 off), card '
+        f'vs CPU: encoder discrete fields equal, offsets {enc_err:.3e}, '
+        f'images {img_err:.3e} (limit {ENC_ATOL}); float32 loss '
+        f'{gm["loss"]:.6f} / {cm["loss"]:.6f}, worst loss term '
+        f'{loss_err:.3e} relative (limit {LOSS_RTOL}), running statistics '
+        f'{stat_err:.3e} (limit {STAT_RTOL}); float64 gradients '
+        f'{max(e64.values()):.3e} of each tensor\'s largest (limit '
+        f'{GRAD64_RTOL}, {len(rg)} tensors); {int(cm["num_positives"])} '
+        f'positives; CPU step {ct:.1f} s, float64 {rt:.1f} s')
+    log(f'[train] float32 gradients from the CPU\'s float64 step, worst: '
+        f'card {max(e_card.values()):.3e}, CPU {max(e_cpu.values()):.3e}; '
+        f'{loose} of {len(rg)} tensors beyond {GRAD_RTOL} on the CPU')
+    return {'loss_cpu': cm['loss'], 'loss_card': gm['loss'],
+            'encoder_offset_err': enc_err, 'image_err': img_err,
+            'loss_rel_err': loss_err, 'stat_rel_err': stat_err,
+            'grad64_rel_err': max(e64.values()),
+            'grad32_err_card': max(e_card.values()),
+            'grad32_err_cpu': max(e_cpu.values()), 'grad32_loose': loose,
+            'cpu_step_s': ct, 'cpu_f64_step_s': rt, 'failures': failures}
+
+
+def train_through_trainer(dev, root, val_batch):
+    """``MultiGridTrainer(config).train()`` for 2 epochs of 6 steps with
+    validation, then a checkpoint restored into a fresh state and the
+    exported ``final_model.msgpack`` served by ``MultiGridInference``."""
+    import math
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.config import (build_model_for_training,
+                                               create_optimizer_from_config)
+    from multigriddet_tpu_torch.inference import MultiGridInference
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.training import (CheckpointManager,
+                                                 MultiGridTrainer,
+                                                 apply_freeze,
+                                                 create_train_state,
+                                                 fetch_detections)
+    cfg = train_config(root)
+    cuda_nms.popmax_nms.launches = 0
+    cuda_nms.greedy_nms.launches = 0
+    t0 = time.perf_counter()
+    trainer = MultiGridTrainer(cfg, device=dev)
+    history = trainer.train()
+    seconds = time.perf_counter() - t0
+    launches = (cuda_nms.popmax_nms.launches, cuda_nms.greedy_nms.launches)
+    if launches != (0, 0):
+        raise AssertionError(f'the training path launched NMS kernels '
+                             f'{launches}')
+    if len(history) != TRAIN_EPOCHS:
+        raise AssertionError(f'history has {len(history)} records')
+    for rec in history:
+        bad = [k for k, v in rec.items()
+               if isinstance(v, float) and not math.isfinite(v)]
+        if bad or rec['steps'] != TRAIN_FRAMES // B or 'val_loss' not in rec:
+            raise AssertionError(f'bad history record {rec}')
+    with open(os.path.join(cfg['output']['log_dir'], 'history.jsonl')) as f:
+        if len(f.read().splitlines()) != TRAIN_EPOCHS:
+            raise AssertionError('history.jsonl does not hold 2 records')
+
+    # a checkpoint restores into a fresh state
+    mgr = CheckpointManager(cfg['callbacks']['checkpoint']['save_dir'])
+    step = mgr.latest_step()
+    if step is None:
+        raise AssertionError('no checkpoint was written')
+    raw = mgr.restore_raw(step)
+    fresh, _, _ = build_model_for_training(cfg, device=dev, seed=SEED + 1)
+    state = create_train_state(fresh, create_optimizer_from_config(
+        cfg, apply_freeze(fresh, 0)))
+    mgr.restore(state, step)
+    sd = fresh.state_dict()
+    if not all(torch.equal(sd[k].cpu(), v) for k, v in raw['model'].items()):
+        raise AssertionError('the restored model differs from its checkpoint')
+    if state.step != raw['step'] or state.optimizer.count != \
+            raw['optimizer']['count']:
+        raise AssertionError('the restored step or optimizer count differs')
+
+    # the export loads into the serving engine (the port's own msgpack
+    # codec) and serves a batch
+    final = os.path.join(cfg['output']['model_dir'], 'final_model.msgpack')
+    scfg = serve_config('pallas_fused')
+    scfg['weights_path'] = final
+    engine = MultiGridInference(scfg, device=dev)
+    served = engine.model.state_dict()
+    exported = trainer.model.state_dict()
+    if not all(torch.equal(served[k], exported[k].to(served[k].device))
+               for k in served if not k.endswith('num_batches_tracked')):
+        raise AssertionError('served weights differ from the trained model')
+    bx, cl, sc, va = fetch_detections(engine.infer_batch(val_batch))
+    if not (np.isfinite(bx[va]).all() and np.isfinite(sc[va]).all()):
+        raise AssertionError('the exported model served non-finite output')
+    ips = [r['images_per_sec'] for r in history]
+    log(f'[train] trainer: {TRAIN_EPOCHS} epochs of {TRAIN_FRAMES // B} '
+        f'steps in {seconds:.1f} s, losses '
+        f'{[round(r["loss"], 4) for r in history]}, val '
+        f'{[round(r["val_loss"], 4) for r in history]}, images/s '
+        f'{[round(v, 1) for v in ips]}; checkpoint {step} restored; '
+        f'{os.path.getsize(final) / 2 ** 20:.1f} MiB export served '
+        f'({int(va.sum())} detections); NMS launches while training '
+        f'{launches}')
+    return {'history': history, 'seconds': seconds, 'restored_step': step,
+            'epoch2_images_per_sec': ips[-1], 'launches': list(launches)}
+
+
+def count_ops(fn):
+    """The ATen ops ``fn`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    count = [0]
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            count[0] += 1
+            return func(*args, **(kwargs or {}))
+    with Counter():
+        fn()
+    return count[0]
+
+
+def profile_calls(fn, calls):
+    """``calls`` calls of ``fn`` under ``torch.profiler``: CUDA kernels a
+    call, device ms a call by kernel group (``profile_serve``'s groups),
+    and the device's busy share of the wall time.  None where the profiler
+    records no kernel (on the CPU, or if its tracing is unavailable)."""
+    from collections import defaultdict
+    import torch
+    from multigriddet_tpu_torch.profile_serve import _group, _union_us
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    by_group = defaultdict(float)
+    for e in kernels:
+        by_group[_group(e.name)] += e.time_range.end - e.time_range.start
+    busy = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
+    return {'kernels': len(kernels) / calls,
+            'group_ms': {k: v / calls / 1e3
+                         for k, v in sorted(by_group.items())},
+            'device_busy_share': busy / wall_us,
+            'wall_ms': wall_us / calls / 1e3}
+
+
+def overfit_and_times(dev, root, canvases, boxes):
+    """40 fused steps on one fixed batch (the loss must halve), then the
+    step and its parts timed on that resident batch."""
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.config import (build_model_for_training,
+                                               create_optimizer_from_config)
+    from multigriddet_tpu_torch.losses import multigrid_loss
+    from multigriddet_tpu_torch.ops.encoding import encode_targets
+    from multigriddet_tpu_torch.ops.yuv import rgb_to_yuv420_np
+    from multigriddet_tpu_torch.training import (apply_freeze,
+                                                 create_train_state,
+                                                 make_fused_train_step)
+    from multigriddet_tpu_torch.training.steps import train_forward
+    cfg = train_config(root, lr=OVERFIT_LR, schedule={'type': 'constant'})
+    model, spec, loss_cfg = build_model_for_training(cfg, device=dev,
+                                                     seed=SEED)
+    anchors = spec['anchors']
+    opt = create_optimizer_from_config(cfg, apply_freeze(model, 0))
+    state = create_train_state(model, opt)
+    host_step, _ = make_fused_train_step(anchors, NUM_CLASSES, loss_cfg,
+                                         aug_cfg={'enabled': False})
+    parts = tuple(torch.from_numpy(p).to(dev)
+                  for p in rgb_to_yuv420_np(canvases))
+    gen = torch.Generator().manual_seed(SEED)
+    losses = []
+    for _ in range(OVERFIT_STEPS):
+        state, m = host_step(state, parts, boxes, gen)
+        losses.append(m['loss'])
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or losses[-1] > 0.5 * losses[0]:
+        raise AssertionError(f'overfit: loss {losses[0]!r} -> {losses[-1]!r}'
+                             f' in {OVERFIT_STEPS} steps (must halve)')
+    log(f'[train] overfit b{B} @{HW[0]} bf16, Adam {OVERFIT_LR}: loss '
+        f'{losses[0]:.4f} -> {losses[-1]:.4f} ({losses[-1] / losses[0]:.3f}'
+        f'x) in {OVERFIT_STEPS} steps; every 5th: '
+        f'{[round(v, 3) for v in losses[::5]]}')
+
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    times['step_ms'] = cuda_ms(lambda: host_step(state, parts, boxes, gen),
+                               TIMED_STEPS, WARMUP_STEPS)
+    times['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    times['img_per_s'] = B / (times['step_ms'] / 1e3)
+    times['encode_ms'] = cuda_ms(lambda: encode_targets(
+        boxes, anchors, NUM_CLASSES, HW, device=dev), TIMED_STEPS,
+        WARMUP_STEPS)
+    times['encode_ops'] = count_ops(lambda: encode_targets(
+        boxes, anchors, NUM_CLASSES, HW, device=dev))
+    y_true = encode_targets(boxes, anchors, NUM_CLASSES, HW, device=dev)
+    prof = profile_calls(lambda: encode_targets(
+        boxes, anchors, NUM_CLASSES, HW, device=dev), 1)
+    times['encode_cuda_kernels'] = prof and prof['kernels']
+    times['max_valid_boxes'] = int(((boxes[..., 2] - boxes[..., 0])
+                                    * (boxes[..., 3] - boxes[..., 1])
+                                    > 0).sum(1).max())
+    from multigriddet_tpu_torch.data.pipeline import pixels_to_f32
+    from multigriddet_tpu_torch.data.augment import normalize_images
+    images = normalize_images(pixels_to_f32(parts))
+    anc = [torch.from_numpy(a).to(dev) for a in anchors]
+
+    def forward_loss():
+        outs = train_forward(model, images)
+        return multigrid_loss(outs, list(y_true), anc, NUM_CLASSES, HW,
+                              loss_cfg)[0]
+    times['forward_loss_ms'] = cuda_ms(forward_loss, TIMED_STEPS,
+                                       WARMUP_STEPS)
+    # of which the loss: on the forward's outputs, its graph built
+    outs = [o.detach().requires_grad_() for o in train_forward(model, images)]
+    times['loss_ms'] = cuda_ms(lambda: multigrid_loss(
+        outs, list(y_true), anc, NUM_CLASSES, HW, loss_cfg), TIMED_STEPS,
+        WARMUP_STEPS)
+    del outs
+    total = forward_loss()
+    opt.zero_grad()
+    times['backward_ms'] = cuda_ms(
+        lambda: total.backward(retain_graph=True), TIMED_STEPS, WARMUP_STEPS)
+    del total
+    times['optimizer_ms'] = cuda_ms(opt.step, TIMED_STEPS, WARMUP_STEPS)
+    log(f'[train] fused train step b{B} @{HW[0]} bf16 (Adam): '
+        f'{times["step_ms"]:.3f} ms, {times["img_per_s"]:.1f} img/s, peak '
+        f'{times["peak_gib"]:.2f} GiB; parts alone: encode '
+        f'{times["encode_ms"]:.3f} ms ({times["encode_ops"]} ops, '
+        f'{times["encode_cuda_kernels"]} CUDA kernels, '
+        f'{times["max_valid_boxes"]} boxes at most), forward + loss '
+        f'{times["forward_loss_ms"]:.3f} ms (the loss '
+        f'{times["loss_ms"]:.3f}), backward '
+        f'{times["backward_ms"]:.3f} ms, optimizer '
+        f'{times["optimizer_ms"]:.3f} ms')
+    # where the step's device time goes, and how busy the device is
+    times['profile'] = profile_calls(
+        lambda: host_step(state, parts, boxes, gen), 5)
+    if times['profile']:
+        prof = times['profile']
+        log(f'[train] profiled fused step: {prof["wall_ms"]:.1f} ms wall, '
+            f'{prof["kernels"]:.0f} CUDA kernels, device busy '
+            f'{prof["device_busy_share"]:.1%}; device ms by group '
+            f'{ {k: round(v, 2) for k, v in prof["group_ms"].items()} }')
+    return {'overfit_losses': losses, **times}
+
+
+def phase_train(dev, smi):
+    """Phase 7: step parity card vs CPU, the trainer through its entry
+    point, an overfit run and the train step's times."""
+    import shutil
+    t0 = time.perf_counter()
+    report = {'parity': train_step_parity(dev)}
+    root = os.path.join(REPO, 'build', 'chip_smoke_train')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    lines, canvases, boxes = train_frames(TRAIN_FRAMES, SEED + 11)
+    write_frames(root, 'train.txt', lines, canvases, boxes, 'yuv420')
+    vlines, vcanvases, vboxes = train_frames(VAL_FRAMES, SEED + 12)
+    write_frames(root, 'val.txt', vlines, vcanvases, vboxes, 'rgb')
+    report['trainer'] = train_through_trainer(dev, root, vcanvases[:B])
+    report['step'] = overfit_and_times(dev, root, canvases[:B], boxes[:B])
+    report['step']['epoch2_images_per_sec'] = \
+        report['trainer']['epoch2_images_per_sec']
+    shutil.rmtree(root, ignore_errors=True)
+    report['seconds'] = time.perf_counter() - t0
+    log(f'[train] trainer epoch 2: '
+        f'{report["step"]["epoch2_images_per_sec"]:.1f} img/s; card: {smi}')
+    if report['parity']['failures']:
+        raise AssertionError('train step parity: ' + '; '.join(
+            report['parity']['failures']))
+    return report
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--report', default=None,
@@ -846,6 +1389,8 @@ def main(argv=None) -> int:
     evaluate = phase_evaluate(pool, smi)
     evaluate['seconds'] = time.perf_counter() - t_eval
     log(f'[evaluate] phase took {evaluate["seconds"]:.1f} s')
+    train = phase_train(torch.device('cuda'), smi)
+    log(f'[train] phase took {train["seconds"]:.1f} s')
 
     src = 'multigriddet_tpu_torch/csrc/nms.cu'
     replaces = {'popmax_nms': 'multigriddet_tpu/ops/pallas_nms.py:115',
@@ -867,7 +1412,7 @@ def main(argv=None) -> int:
                        'build_seconds': build['seconds'],
                        'serve': times, 'launches': launches,
                        'f32_parity_rel_err': f32_err, 'kernels': kernels,
-                       'evaluate': evaluate,
+                       'evaluate': evaluate, 'train': train,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},
                        'kernel_call_ms': {k['name']: k['call_ms']

@@ -1,11 +1,13 @@
-"""Host data helpers of the port: annotations, host image loading, the
-native loader and matcher bindings."""
+"""Host data helpers and the input pipeline of the port: annotations, host
+image loading, the native loader and matcher bindings, the generator."""
 
 from .annotations import (HostImageLoader, letterbox_image,
                           load_and_letterbox, load_annotation_lines,
                           parse_annotation_line)
+from .pipeline import MultiGridDataGenerator, calculate_expansion_factor
 
 __all__ = [
-    'HostImageLoader', 'letterbox_image', 'load_and_letterbox',
+    'HostImageLoader', 'MultiGridDataGenerator',
+    'calculate_expansion_factor', 'letterbox_image', 'load_and_letterbox',
     'load_annotation_lines', 'parse_annotation_line',
 ]

@@ -22,3 +22,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {dev}')
     return dev
+
+
+def to_device(x, device, dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """A numpy array or CPU tensor on ``device`` without a host sync.
+
+    A plain host-to-card copy synchronizes the stream first, which would
+    stall the host behind every queued step; this one goes through pinned
+    memory and ``non_blocking``, so it queues behind them instead.
+    """
+    t = torch.as_tensor(x, dtype=dtype)
+    device = torch.device(device)
+    if device.type == 'cuda' and t.device.type == 'cpu':
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

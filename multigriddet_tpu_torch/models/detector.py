@@ -8,14 +8,14 @@ returns raw per-scale logits ``[B, gh, gw, A_l + C + 5]`` in float32.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .darknet import Darknet53
 from .head import MultiGridHead
-from .layers import ConvBN
+from .layers import BN_MOMENTUM, ConvBN
 
 
 class MultiGridDet(nn.Module):
@@ -25,10 +25,18 @@ class MultiGridDet(nn.Module):
         self.backbone = backbone
         self.head = head
 
-    def forward(self, images: torch.Tensor):
-        """``images``: ``[B, H, W, 3]`` float, NHWC as in the JAX model."""
-        taps = self.backbone(images.permute(0, 3, 1, 2))
-        return self.head(taps)
+    def forward(self, images: torch.Tensor, train: Optional[bool] = None,
+                backbone_train: Optional[bool] = None):
+        """``images``: ``[B, H, W, 3]`` float, NHWC as in the JAX model.
+
+        ``train`` selects BatchNorm's mode (default: the module's
+        ``training`` flag); ``backbone_train`` overrides it for the
+        backbone alone, as the freeze-level-1 stage runs the frozen
+        backbone's BatchNorm in inference mode (JAX ``detector.py:40-52``).
+        """
+        bt = train if backbone_train is None else backbone_train
+        taps = self.backbone(images.permute(0, 3, 1, 2), bt)
+        return self.head(taps, train)
 
 
 class TinyBackbone(nn.Module):
@@ -36,18 +44,19 @@ class TinyBackbone(nn.Module):
 
     out_channels: Tuple[int, int, int] = (32, 48, 64)
 
-    def __init__(self, dtype: torch.dtype = torch.float32):
+    def __init__(self, dtype: torch.dtype = torch.float32,
+                 bn_momentum: float = BN_MOMENTUM):
         super().__init__()
         cin = 3
         for i, ch in enumerate((16, 24, *self.out_channels)):
-            self.add_module(f'ConvBN_{i}', ConvBN(cin, ch, 3, strides=2,
-                                                  dtype=dtype))
+            self.add_module(f'ConvBN_{i}', ConvBN(
+                cin, ch, 3, strides=2, dtype=dtype, bn_momentum=bn_momentum))
             cin = ch
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None):
         taps = []
         for i in range(5):
-            x = getattr(self, f'ConvBN_{i}')(x)
+            x = getattr(self, f'ConvBN_{i}')(x, train)
             if i >= 2:
                 taps.append(x)
         return tuple(taps)
@@ -60,10 +69,12 @@ def _head_channels(backbone) -> Tuple[int, int, int]:
 
 
 def _build(backbone_cls, num_anchors=(3, 3, 3), num_classes: int = 80,
-           dtype: torch.dtype = torch.float32) -> MultiGridDet:
-    backbone = backbone_cls(dtype=dtype)
+           dtype: torch.dtype = torch.float32,
+           bn_momentum: float = BN_MOMENTUM) -> MultiGridDet:
+    backbone = backbone_cls(dtype=dtype, bn_momentum=bn_momentum)
     head = MultiGridHead(backbone.out_channels, tuple(num_anchors),
-                         num_classes, _head_channels(backbone), dtype)
+                         num_classes, _head_channels(backbone), dtype,
+                         bn_momentum)
     return MultiGridDet(backbone, head)
 
 

@@ -15,13 +15,19 @@ batch_stats ``mean``   ``running_mean``           as is
 batch_stats ``var``    ``running_var``            as is
 =====================  =========================  ===================
 
+``state_dict_to_flax`` is the inverse (OIHW -> HWIO, ``running_*`` ->
+``mean``/``var``), for the trainer's exports.
+
 ``load_weights_flexible`` reads the JAX package's msgpack files (the
 ``{'params', 'batch_stats'}`` bundle or a bare params tree, written by
-``flax.serialization.to_bytes``) with the ``msgpack`` package alone.
+``flax.serialization.to_bytes``) and ``msgpack_serialize`` writes them,
+through a codec of the msgpack subset flax uses written here in numpy
+alone: the card's host has no ``msgpack`` package.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
@@ -66,6 +72,35 @@ def flax_to_state_dict(params: Mapping[str, Any],
             key = '.'.join(path[:-1] + (leaves[leaf],))
             out[key] = torch.tensor(arr)
     return out
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
+                       ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The port's ``state_dict`` as flax ``(params, batch_stats)`` trees of
+    float32 numpy arrays: the inverse of :func:`flax_to_state_dict`."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split('.')
+        if leaf == 'num_batches_tracked':
+            continue
+        arr = t.detach().to('cpu', torch.float32).numpy()
+        if leaf in ('running_mean', 'running_var'):
+            tree, name = stats, leaf[len('running_'):]
+        elif leaf == 'weight' and arr.ndim == 4:
+            tree, name = params, 'kernel'
+            arr = arr.transpose(2, 3, 1, 0)
+        elif leaf == 'weight' and arr.ndim == 1:
+            tree, name = params, 'scale'
+        elif leaf == 'bias':
+            tree, name = params, 'bias'
+        else:
+            raise KeyError(f'no flax leaf for state_dict entry {key}')
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
+    return params, stats
 
 
 def load_flax_variables(model: nn.Module, params: Mapping[str, Any],
@@ -138,29 +173,210 @@ def random_flax_variables(model: nn.Module, seed: int = 0
 
 
 # ---------------------------------------------------------------------------
-# flax msgpack files, read without flax
+# flax msgpack files, read and written without flax or msgpack
 # ---------------------------------------------------------------------------
 
+MAX_CHUNK_SIZE = 2 ** 30    # flax splits arrays above 1 GiB into chunks
+
+
+class _Reader:
+    """A msgpack decoder of the formats flax writes (and the rest of the
+    spec's fixed formats, for files written by other packers)."""
+
+    def __init__(self, data: bytes):
+        self.buf = memoryview(data)
+        self.pos = 0
+
+    def take(self, n: int) -> bytes:
+        out = self.buf[self.pos:self.pos + n]
+        if len(out) != n:
+            raise ValueError('truncated msgpack data')
+        self.pos += n
+        return bytes(out)
+
+    def _uint(self, n: int) -> int:
+        return int.from_bytes(self.take(n), 'big')
+
+    def value(self):
+        c = self.take(1)[0]
+        if c <= 0x7f:
+            return c
+        if c >= 0xe0:
+            return c - 0x100
+        if 0x80 <= c <= 0x8f:
+            return self._map(c & 0x0f)
+        if 0x90 <= c <= 0x9f:
+            return self._array(c & 0x0f)
+        if 0xa0 <= c <= 0xbf:
+            return self.take(c & 0x1f).decode('utf-8')
+        if c == 0xc0:
+            return None
+        if c in (0xc2, 0xc3):
+            return c == 0xc3
+        if c in (0xc4, 0xc5, 0xc6):
+            return self.take(self._uint(1 << (c - 0xc4)))
+        if c in (0xc7, 0xc8, 0xc9):
+            n = self._uint(1 << (c - 0xc7))
+            return self._ext(n)
+        if c == 0xca:
+            return struct.unpack('>f', self.take(4))[0]
+        if c == 0xcb:
+            return struct.unpack('>d', self.take(8))[0]
+        if 0xcc <= c <= 0xcf:
+            return self._uint(1 << (c - 0xcc))
+        if 0xd0 <= c <= 0xd3:
+            return int.from_bytes(self.take(1 << (c - 0xd0)), 'big',
+                                  signed=True)
+        if 0xd4 <= c <= 0xd8:
+            return self._ext(1 << (c - 0xd4))
+        if 0xd9 <= c <= 0xdb:
+            return self.take(self._uint(1 << (c - 0xd9))).decode('utf-8')
+        if c in (0xdc, 0xdd):
+            return self._array(self._uint(2 if c == 0xdc else 4))
+        if c in (0xde, 0xdf):
+            return self._map(self._uint(2 if c == 0xde else 4))
+        raise ValueError(f'unsupported msgpack byte 0x{c:02x}')
+
+    def _map(self, n: int):
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def _array(self, n: int):
+        return [self.value() for _ in range(n)]
+
+    def _ext(self, n: int):
+        code = int.from_bytes(self.take(1), 'big', signed=True)
+        data = self.take(n)
+        if code == _EXT_NDARRAY:
+            return _ndarray_from_bytes(data)
+        if code == _EXT_NPSCALAR:
+            return _ndarray_from_bytes(data)[()]
+        if code == _EXT_COMPLEX:
+            re, im = _Reader(data).value()
+            return complex(re, im)
+        raise ValueError(f'unknown msgpack extension type {code}')
+
+
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:
-    import msgpack
-    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
-    if dtype_name == b'bfloat16':
+    shape, dtype_name, buffer = _Reader(data).value()
+    if dtype_name == 'bfloat16':
         bits = np.frombuffer(buffer, np.uint16).astype(np.uint32) << 16
         return bits.view(np.float32).reshape(shape)
-    return np.frombuffer(buffer, np.dtype(dtype_name.decode())).reshape(
+    return np.frombuffer(buffer, np.dtype(dtype_name)).reshape(
         shape, order='C')
 
 
-def _ext_hook(code: int, data: bytes):
-    import msgpack
-    if code == _EXT_NDARRAY:
-        return _ndarray_from_bytes(data)
-    if code == _EXT_NPSCALAR:
-        return _ndarray_from_bytes(data)[()]
-    if code == _EXT_COMPLEX:
-        re, im = msgpack.unpackb(data)
-        return complex(re, im)
-    return msgpack.ExtType(code, data)
+def _header(out: bytearray, n: int, fix: int, fix_max: int,
+            wide: Tuple[int, ...]):
+    """A length header: the fix form below ``fix_max``, else the first of
+    the 8/16/32-bit (or 16/32-bit) forms ``wide`` that holds ``n``."""
+    if fix is not None and n < fix_max:
+        out.append(fix | n)
+        return
+    sizes = (1, 2, 4)[-len(wide):]
+    for code, size in zip(wide, sizes):
+        if n < 1 << (8 * size):
+            out.append(code)
+            out += n.to_bytes(size, 'big')
+            return
+    raise ValueError(f'msgpack length {n} too large')
+
+
+def _pack_int(out: bytearray, n: int):
+    if 0 <= n < 128:
+        out.append(n)
+    elif -32 <= n < 0:
+        out.append(n & 0xff)
+    elif n >= 0:
+        for code, size in ((0xcc, 1), (0xcd, 2), (0xce, 4), (0xcf, 8)):
+            if n < 1 << (8 * size):
+                out.append(code)
+                out += n.to_bytes(size, 'big')
+                return
+        raise OverflowError(n)
+    else:
+        for code, size in ((0xd0, 1), (0xd1, 2), (0xd2, 4), (0xd3, 8)):
+            if n >= -(1 << (8 * size - 1)):
+                out.append(code)
+                out += n.to_bytes(size, 'big', signed=True)
+                return
+        raise OverflowError(n)
+
+
+def _pack_ext(out: bytearray, code: int, data: bytes):
+    n = len(data)
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if n in fixed:
+        out.append(fixed[n])
+    else:
+        _header(out, n, None, 0, (0xc7, 0xc8, 0xc9))
+    out += code.to_bytes(1, 'big', signed=True)
+    out += data
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    out = bytearray()
+    _pack(out, [list(arr.shape), arr.dtype.name, arr.tobytes('C')])
+    return bytes(out)
+
+
+def _pack(out: bytearray, obj):
+    """msgpack-python's encoding (``use_bin_type``), with flax's
+    extension types for numpy arrays, numpy scalars and complex."""
+    if obj is None:
+        out.append(0xc0)
+    elif obj is True or obj is False:
+        out.append(0xc3 if obj else 0xc2)
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)))
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(0xcb)
+        out += struct.pack('>d', obj)
+    elif isinstance(obj, complex):
+        inner = bytearray()
+        _pack(inner, [obj.real, obj.imag])
+        _pack_ext(out, _EXT_COMPLEX, bytes(inner))
+    elif isinstance(obj, str):
+        data = obj.encode('utf-8')
+        _header(out, len(data), 0xa0, 32, (0xd9, 0xda, 0xdb))
+        out += data
+    elif isinstance(obj, (bytes, bytearray)):
+        _header(out, len(obj), None, 0, (0xc4, 0xc5, 0xc6))
+        out += obj
+    elif isinstance(obj, Mapping):
+        _header(out, len(obj), 0x80, 16, (0xde, 0xdf))
+        for k, v in obj.items():
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 0x90, 16, (0xdc, 0xdd))
+        for v in obj:
+            _pack(out, v)
+    else:
+        raise TypeError(f'cannot serialize {type(obj).__name__}')
+
+
+def _chunk(tree):
+    """The tree as flax writes it: each dict's keys sorted (flax's tree
+    map sorts them), and array leaves above ``MAX_CHUNK_SIZE`` bytes split
+    into ``__msgpack_chunked_array__`` dicts (kept in flax's own order)."""
+    if isinstance(tree, Mapping):
+        return {k: _chunk(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, np.ndarray) and tree.nbytes > MAX_CHUNK_SIZE:
+        size = max(1, int(MAX_CHUNK_SIZE / tree.dtype.itemsize))
+        flat = tree.reshape(-1)
+        chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+        return {'__msgpack_chunked_array__': True,
+                'shape': {str(i): s for i, s in enumerate(tree.shape)},
+                'chunks': {str(i): c for i, c in enumerate(chunks)}}
+    return tree
 
 
 def _unchunk(tree):
@@ -177,9 +393,21 @@ def _unchunk(tree):
 
 
 def msgpack_restore(data: bytes):
-    """``flax.serialization.msgpack_restore`` without flax."""
-    import msgpack
-    return _unchunk(msgpack.unpackb(data, ext_hook=_ext_hook, raw=False))
+    """``flax.serialization.msgpack_restore`` without flax or msgpack."""
+    reader = _Reader(data)
+    tree = reader.value()
+    if reader.pos != len(data):
+        raise ValueError('trailing bytes after the msgpack value')
+    return _unchunk(tree)
+
+
+def msgpack_serialize(tree) -> bytes:
+    """The bytes ``flax.serialization.to_bytes`` writes for a tree of
+    dicts with numpy leaves (keys sorted, as flax's tree map leaves them),
+    without flax or msgpack."""
+    out = bytearray()
+    _pack(out, _chunk(tree))
+    return bytes(out)
 
 
 def load_weights_flexible(path: str, model: nn.Module) -> nn.Module:

@@ -23,6 +23,19 @@ def xy_activation(t: torch.Tensor) -> torch.Tensor:
     return torch.tanh(0.15 * t) + torch.sigmoid(0.15 * t)
 
 
+def invert_xy_activation(y: torch.Tensor, iters: int = 30) -> torch.Tensor:
+    """Newton inversion of ``xy_activation``, valid for y in (-1, 2)."""
+    y = torch.clamp(y, -1.0 + 1e-4, 2.0 - 1e-4)
+    x = torch.zeros_like(y)
+    for _ in range(iters):
+        s = torch.sigmoid(0.15 * x)
+        th = torch.tanh(0.15 * x)
+        fx = th + s - y
+        dfx = 0.15 * (1.0 - th * th) + 0.15 * s * (1.0 - s)
+        x = x - fx / torch.clamp_min(dfx, 1e-4)
+    return x
+
+
 def _cell_grid(gh: int, gw: int, device) -> torch.Tensor:
     rows, cols = torch.meshgrid(
         torch.arange(gh, dtype=torch.float32, device=device),

@@ -1,10 +1,11 @@
-"""Box geometry on tensors (NMS overlaps) and on host arrays (letterbox).
+"""Box geometry on tensors (anchor matching, overlaps) and on host arrays
+(letterbox).
 
-Counterpart of ``multigriddet_tpu/ops/geometry.py:102-229``.  The pairwise
-overlaps keep the JAX expressions and their float32 evaluation order, so
-keep decisions at the threshold edge agree.  The letterbox inverse runs on
-at most ``max_boxes`` boxes per image after NMS, on the host in numpy, as
-the JAX engine runs it.
+Counterpart of ``multigriddet_tpu/ops/geometry.py``.  The anchor metrics
+and pairwise overlaps keep the JAX expressions and their float32
+evaluation order, so anchor picks and keep decisions at the threshold edge
+agree.  The letterbox inverse runs on at most ``max_boxes`` boxes per image
+after NMS, on the host in numpy, as the JAX engine runs it.
 """
 
 from __future__ import annotations
@@ -13,6 +14,57 @@ import numpy as np
 import torch
 
 EPS = 1e-8
+
+
+# ---------------------------------------------------------------------------
+# (w, h) anchor metrics: boxes and anchors share an implied centre
+# ---------------------------------------------------------------------------
+
+def iol_wh(boxes_wh: torch.Tensor, anchors_wh: torch.Tensor) -> torch.Tensor:
+    """Intersection over the larger area of ``[..., N, 2]`` boxes and
+    ``[M, 2]`` anchors: ``[..., N, M]`` (the encoder's matching metric)."""
+    b = boxes_wh[..., :, None, :]
+    inter = torch.minimum(b, anchors_wh)
+    inter_area = inter[..., 0] * inter[..., 1]
+    box_area = boxes_wh[..., :, None, 0] * boxes_wh[..., :, None, 1]
+    anchor_area = anchors_wh[:, 0] * anchors_wh[:, 1]
+    return inter_area / (torch.maximum(box_area, anchor_area) + EPS)
+
+
+def iou_wh(boxes_wh: torch.Tensor, anchors_wh: torch.Tensor) -> torch.Tensor:
+    """IoU of ``[..., N, 2]`` boxes and ``[M, 2]`` anchors, centres shared."""
+    b = boxes_wh[..., :, None, :]
+    inter = torch.minimum(b, anchors_wh)
+    inter_area = inter[..., 0] * inter[..., 1]
+    box_area = boxes_wh[..., :, None, 0] * boxes_wh[..., :, None, 1]
+    anchor_area = anchors_wh[:, 0] * anchors_wh[:, 1]
+    return inter_area / (box_area + anchor_area - inter_area + EPS)
+
+
+def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    xy, wh = boxes[..., 0:2], boxes[..., 2:4]
+    half = wh / 2.0
+    return torch.cat([xy - half, xy + half], dim=-1)
+
+
+def xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    mins, maxs = boxes[..., 0:2], boxes[..., 2:4]
+    return torch.cat([(mins + maxs) / 2.0, maxs - mins], dim=-1)
+
+
+def pairwise_iou_cxcywh(boxes1: torch.Tensor,
+                        boxes2: torch.Tensor) -> torch.Tensor:
+    """IoU of ``[..., N, 4]`` and ``[..., M, 4]`` cxcywh boxes:
+    ``[..., N, M]``."""
+    b1 = cxcywh_to_xyxy(boxes1)[..., :, None, :]
+    b2 = cxcywh_to_xyxy(boxes2)[..., None, :, :]
+    inter_min = torch.maximum(b1[..., 0:2], b2[..., 0:2])
+    inter_max = torch.minimum(b1[..., 2:4], b2[..., 2:4])
+    inter_wh = torch.clamp_min(inter_max - inter_min, 0.0)
+    inter = inter_wh[..., 0] * inter_wh[..., 1]
+    area1 = (boxes1[..., 2] * boxes1[..., 3])[..., :, None]
+    area2 = (boxes2[..., 2] * boxes2[..., 3])[..., None, :]
+    return inter / (area1 + area2 - inter + EPS)
 
 
 def pairwise_iou_xywh_topleft(boxes1: torch.Tensor, boxes2: torch.Tensor,

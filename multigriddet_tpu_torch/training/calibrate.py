@@ -1,0 +1,53 @@
+"""BatchNorm statistics recalibration.
+
+Counterpart of ``multigriddet_tpu/training/calibrate.py``: the running
+statistics become the plain average of each batch's moments (the mean and
+the biased variance, clipped at 0) over a sweep of batches.  The JAX
+function recovers each batch's moments from the running-average update by
+measuring every layer's momentum; the port's BatchNorm is its own, so it
+reads the moments directly: with the momentum set to 0 for the sweep, a
+train-mode forward leaves exactly the batch's moments in the running
+buffers.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+from torch import nn
+
+from ..models.layers import ConvBN
+
+
+@torch.no_grad()
+def calibrate_batch_stats(model: nn.Module, batches: Iterable,
+                          max_batches: int = 32) -> nn.Module:
+    """Recompute the running statistics of every BatchNorm of ``model`` in
+    place over at most ``max_batches`` of ``batches`` (image tensors
+    ``[B, H, W, 3]`` in [0, 1], or tuples whose first element is one).
+    The model keeps its statistics when ``batches`` is empty."""
+    blocks = [m for m in model.modules() if isinstance(m, ConvBN)]
+    momenta = [m.bn_momentum for m in blocks]
+    sums, n = None, 0
+    try:
+        for m in blocks:
+            m.bn_momentum = 0.0
+        for item in batches:
+            images = item[0] if isinstance(item, (tuple, list)) else item
+            model(images, train=True)
+            stats = [(m.BatchNorm_0.running_mean.clone(),
+                      m.BatchNorm_0.running_var.clone()) for m in blocks]
+            sums = stats if sums is None else [
+                (a + s, b + t) for (a, b), (s, t) in zip(sums, stats)]
+            n += 1
+            if n >= max_batches:
+                break
+    finally:
+        for m, mom in zip(blocks, momenta):
+            m.bn_momentum = mom
+    if sums is not None:
+        for m, (mean, var) in zip(blocks, sums):
+            m.BatchNorm_0.running_mean.copy_(mean / n)
+            m.BatchNorm_0.running_var.copy_(torch.clamp_min(var / n, 0.0))
+    return model

@@ -1,22 +1,187 @@
-"""The fused inference step: pixels -> forward -> decode -> NMS.
+"""Train, eval and inference steps.
 
-Counterpart of the inference half of ``multigriddet_tpu/training/steps.py``
-(``make_infer_step``, ``unpack_detections``, ``fetch_detections``).  The
-step is a plain closure over the model; PyTorch runs it eagerly on the
-device that holds the model and the images.  The forward runs in the
-model's compute dtype; decode and NMS run in float32.
+Counterpart of ``multigriddet_tpu/training/steps.py``.  Each step is a plain
+closure; PyTorch runs it eagerly on the device that holds the model and the
+batch.  The forward runs in the model's compute dtype; the loss, decode and
+NMS run in float32.
+
+* :func:`make_train_step`: ``step(state, images, y_true) -> (state,
+  metrics)`` runs the train-mode forward, MultiGridLoss, the backward, the
+  optimizer update and the EMA update, in place on ``state``.  Metrics stay
+  on the device (the trainer fetches them once per epoch).
+* :func:`make_fused_train_step`: the same from the generator's raw u8
+  link-format batch (device stage, then the train step) in one call.
+* :func:`make_eval_step`: inference-mode forward + loss metrics.
+* :func:`make_infer_step`: the fused forward + decode + NMS of serving.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import to_device
+from ..losses import LossConfig, multigrid_loss
 from ..ops.decode import decode_for_nms
 from ..ops.nms import NEG_INF, batched_nms, gather_rows, top_k
 from ..ops.yuv import yuv420_to_rgb
+
+
+class _OnDevice:
+    """Anchors and class weights as tensors, copied once per device."""
+
+    def __init__(self, anchors, class_weights):
+        self.anchors = [np.asarray(a, np.float32) for a in anchors]
+        self.class_weights = (None if class_weights is None else
+                              np.asarray(class_weights, np.float32))
+        self._cache: Dict = {}
+
+    def __call__(self, device):
+        if device not in self._cache:
+            cw = self.class_weights
+            self._cache[device] = (
+                [to_device(a, device) for a in self.anchors],
+                None if cw is None else to_device(cw, device))
+        return self._cache[device]
+
+
+def train_forward(model, images: torch.Tensor, freeze_level: int = 0):
+    """The train-mode forward of a freeze level: 0 trains every BatchNorm;
+    1 runs the frozen backbone's BatchNorm in inference mode (running
+    statistics used and kept); 2 runs the whole model in inference mode
+    (only the predict convs train)."""
+    if freeze_level >= 2:
+        return model(images, train=False)
+    if freeze_level == 1:
+        return model(images, train=True, backbone_train=False)
+    return model(images, train=True)
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], model, decay: float):
+    """``e = e * d + p * (1 - d)`` for every parameter, with ``d`` and
+    ``1 - d`` taken in float32 as the JAX step takes them."""
+    d = np.float32(decay)
+    names = list(ema)
+    params = dict(model.named_parameters())
+    e = [ema[k] for k in names]
+    p = [params[k].detach() for k in names]
+    torch._foreach_mul_(e, float(d))
+    torch._foreach_add_(e, torch._foreach_mul(p, float(np.float32(1) - d)))
+
+
+def _build_train_core(anchors, num_classes, loss_cfg=LossConfig(),
+                      class_weights=None, strides=(32, 16, 8),
+                      freeze_level=0, ema_decay=None):
+    """(state, images, y_true) -> (state, metrics), shared by
+    :func:`make_train_step` and :func:`make_fused_train_step`."""
+    consts = _OnDevice(anchors, class_weights)
+
+    def step(state, images: torch.Tensor, y_true):
+        model, opt = state.model, state.optimizer
+        anc, cw = consts(images.device)
+        outs = train_forward(model, images, freeze_level)
+        total, metrics = multigrid_loss(
+            outs, list(y_true), anc, num_classes, tuple(images.shape[1:3]),
+            loss_cfg, cw, strides=strides)
+        opt.zero_grad()
+        total.backward()
+        opt.step()
+        if ema_decay is not None and state.ema_params is not None:
+            ema_update(state.ema_params, model, ema_decay)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics['loss'] = total.detach()
+        return state, metrics
+
+    return step
+
+
+def make_train_step(anchors: Sequence[np.ndarray], num_classes: int,
+                    input_hw: Tuple[int, int],
+                    loss_cfg: LossConfig = LossConfig(),
+                    class_weights=None,
+                    strides: Tuple[int, ...] = (32, 16, 8),
+                    freeze_level: int = 0,
+                    ema_decay: Optional[float] = None) -> Callable:
+    """``step(state, images [B, H, W, 3] f32 in [0, 1], y_true) -> (state,
+    metrics)``: one update of ``state.model`` through ``state.optimizer``
+    (whose parameters must follow the freeze level, see
+    ``state.apply_freeze``), in place.  With ``ema_decay`` and
+    ``state.ema_params``, the EMA moves after the update.  Under gradient
+    accumulation the optimizer applies one update per k calls, while the
+    BatchNorm statistics and the EMA move on every call, as under
+    ``optax.MultiSteps``.  ``input_hw`` is the nominal canvas; the loss
+    reads the canvas from the images (multi-scale)."""
+    del input_hw
+    return _build_train_core(anchors, num_classes, loss_cfg, class_weights,
+                             strides, freeze_level, ema_decay)
+
+
+def make_fused_train_step(anchors: Sequence[np.ndarray], num_classes: int,
+                          loss_cfg: LossConfig = LossConfig(),
+                          aug_cfg: Optional[dict] = None,
+                          class_weights=None,
+                          strides: Tuple[int, ...] = (32, 16, 8),
+                          freeze_level: int = 0,
+                          ema_decay: Optional[float] = None,
+                          multi_anchor_assign: bool = False,
+                          train_aug: bool = True):
+    """The input stage and the train step in one call.
+
+    Returns ``(host_step, bank_step)``: ``host_step(state, parts, boxes,
+    generator)`` takes the generator's link-format pixels (a u8 rgb batch,
+    a 1-tuple of one, or the yuv420 3-tuple) and ``[B, N, 5]`` boxes, runs
+    u8 -> f32 -> /255 -> 9-cell encoding, then the train step.
+    ``bank_step`` feeds from the device image bank, which is not ported
+    yet (ROADMAP Queue 1 item 10): it raises.
+    """
+    from ..data.pipeline import (AUGMENT_NOT_PORTED, BANK_NOT_PORTED,
+                                 _device_stage, augmentation_enabled)
+    if augmentation_enabled(aug_cfg, train_aug):
+        raise NotImplementedError(AUGMENT_NOT_PORTED)
+    anchors = [np.asarray(a, np.float32) for a in anchors]
+    core = _build_train_core(anchors, num_classes, loss_cfg, class_weights,
+                             strides, freeze_level, ema_decay)
+
+    def host_step(state, parts, boxes, generator=None):
+        if not isinstance(parts, (tuple, list)):
+            parts = (parts,)
+        hw = tuple(int(s) for s in parts[0].shape[1:3])
+        images, y_true, _ = _device_stage(
+            parts, boxes, generator, aug_cfg, anchors, num_classes, hw,
+            train_aug, multi_anchor_assign)
+        return core(state, images, y_true)
+
+    def bank_step(state, banks, idx, boxes, generator=None):
+        raise NotImplementedError(BANK_NOT_PORTED)
+
+    return host_step, bank_step
+
+
+def make_eval_step(anchors: Sequence[np.ndarray], num_classes: int,
+                   input_hw: Tuple[int, int],
+                   loss_cfg: LossConfig = LossConfig(),
+                   class_weights=None,
+                   strides: Tuple[int, ...] = (32, 16, 8)) -> Callable:
+    """``step(state, images, y_true) -> metrics``: the inference-mode
+    forward (running BatchNorm statistics) and the loss metrics."""
+    consts = _OnDevice(anchors, class_weights)
+
+    @torch.no_grad()
+    def step(state, images: torch.Tensor, y_true):
+        anc, cw = consts(images.device)
+        outs = state.model(images, train=False)
+        total, metrics = multigrid_loss(
+            outs, list(y_true), anc, num_classes, input_hw, loss_cfg, cw,
+            strides=strides)
+        metrics = dict(metrics)
+        metrics['loss'] = total
+        return metrics
+
+    return step
 
 
 def candidate_pool(model, images: torch.Tensor, anchors: Sequence,

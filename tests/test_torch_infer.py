@@ -188,7 +188,8 @@ def test_cli_runs_on_cpu(config, tmp_path):
 
 def test_port_imports_no_jax():
     """A fresh interpreter that imports every module of the port has
-    neither JAX nor the JAX package loaded."""
+    neither JAX nor the JAX package loaded, nor msgpack (the card's host
+    has none); the training subpackages are among the modules."""
     code = textwrap.dedent('''
         import importlib, pkgutil, sys
         import multigriddet_tpu_torch as pkg
@@ -198,8 +199,13 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                            'orbax', 'msgpack',
                                             'multigriddet_tpu'))
         assert len(names) >= 20, names
+        for sub in ('losses', 'losses.multigrid_loss', 'ops.encoding',
+                    'training', 'training.trainer', 'training.checkpoint',
+                    'data.pipeline', 'train'):
+            assert pkg.__name__ + '.' + sub in names, sub
         assert not bad, bad
         print(len(names))
     ''')
