@@ -51,18 +51,35 @@
    statistics within 1e-4 relative; the step in float64 from identical
    images and targets, every gradient within 1e-6 of its tensor's largest
    |grad| (in float32 the gradients are rounding noise at this init,
-   reported beside it); (b)
+   reported beside it); (b) the augmented device stage (b8 @608, yuv420)
+   on the card against the CPU from one seed, for the train config's
+   augmentation block (mosaic 0.3, mixup 0.1) and for a block with every
+   optional op on (gridmask, copy-paste, blur, sharpness, motion blur,
+   free rotation): images within 1e-3 on the 0-255 scale, boxes within
+   1e-3 px with the same slots zeroed, targets' offsets within 1e-4, and
+   the chain's invariants on the card (capacity, boxes inside the canvas
+   and at least 3 px a side, mixup keeping every valid box); (c)
    ``MultiGridTrainer(config).train()`` at 608, bfloat16, b8, Adam 1e-4
-   with a 1-epoch cosine warmup, augmentation off,
-   the yuv420 link, 2 epochs of 6 steps over 48 synthetic letterboxed
-   frames with 1-30 boxes each (fed through the loader's ``.npy`` disk
-   cache: the card's host has no Pillow) and validation on 16: finite
-   history, no NMS launch, a checkpoint restored into a fresh state, and
-   ``final_model.msgpack`` served by ``MultiGridInference``; (c) 40 fused
-   steps on one batch must halve the loss; (d) the fused step's time,
-   img/s and peak memory at b8 @608 bf16, and its parts alone (encode,
-   forward + loss, backward, optimizer) with CUDA events, 20 steps after
-   3 warm-up, on a resident batch, and the ops the encoder launches.
+   with a 1-epoch cosine warmup, the train config's augmentation block,
+   ``cache_images_device: true``, the yuv420 link, 2 epochs of 6 steps
+   over 48 synthetic letterboxed frames with 1-30 boxes each (fed through
+   the loader's ``.npy`` disk cache: the card's host has no Pillow) and
+   validation on 16: epoch 1 streamed and epoch 2 from the device bank,
+   a bank gather bit-equal to the host path, one byte ledger for the
+   train and validation banks, finite history, no NMS launch, a
+   checkpoint restored into a fresh state, and ``final_model.msgpack``
+   served by ``MultiGridInference``; the same run without the bank for
+   the streamed epoch-2 rate; (d) 40 fused steps on one batch must halve
+   the loss; (e) the fused step's time, img/s and peak memory at b8 @608
+   bf16 with augmentation off and on, the device stage alone (augment +
+   encode) off and on, its parts alone (encode, forward + loss,
+   backward, optimizer) with CUDA events, 20 steps after 3 warm-up, on a
+   resident batch, and the ops the encoder launches, also at mosaic's
+   box counts.
+8. Overfit (``tools/validate_learning.py`` on the card):
+   ``multigriddet_tiny`` trains 600 epochs at b8 on 16 synthetic 128x128
+   frames of two classes, then the fused infer step and ``calculate_map``
+   score it: mAP50 must reach 0.9.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -874,13 +891,35 @@ ENC_ATOL, LOSS_RTOL, STAT_RTOL, GRAD64_RTOL, GRAD_RTOL = (1e-6, 1e-4, 1e-4,
 TRAIN_FRAMES, VAL_FRAMES, TRAIN_EPOCHS = 48, 16, 2
 OVERFIT_STEPS, OVERFIT_LR = 40, 1e-3
 TIMED_STEPS, WARMUP_STEPS = 20, 3
+# configs/train_config.yaml's augmentation block
+TRAIN_AUG = {'enabled': True, 'enhance_type': 'mosaic', 'mosaic_prob': 0.3,
+             'mixup_prob': 0.1, 'rescale_interval': -1,
+             'max_boxes_per_image': TRAIN_MAX_BOXES}
+AUG_OFF = {'enabled': False, 'rescale_interval': -1,
+           'max_boxes_per_image': TRAIN_MAX_BOXES}
+# every optional op of the chain on, each likely to fire in a batch of 8
+EVERY_OP_AUG = {'enabled': True, 'enhance_type': 'gridmask',
+                'mosaic_prob': 0.5, 'mixup_prob': 0.5, 'gridmask_prob': 0.5,
+                'copypaste_prob': 0.5, 'copypaste_max': 4, 'blur_prob': 0.3,
+                'sharpness_prob': 0.3, 'motion_blur_prob': 0.3,
+                'rotate_any_prob': 0.5, 'rotate_prob': 0.3,
+                'grayscale_prob': 0.2}
+# the augmented device stage, card vs CPU from one seed (the CPU tests'
+# bounds, tests/test_torch_augment.py): images 1e-3 on the 0-255 scale,
+# boxes 1e-3 px with the same slots zeroed, targets' offsets 1e-4
+AUG_IMG_ATOL, AUG_BOX_ATOL, AUG_TARGET_ATOL = 1e-3 / 255.0, 1e-3, 1e-4
+# item 11: tools/validate_learning.py on the card
+MAP_HW, MAP_FRAMES, MAP_EPOCHS, MAP_LR, MAP50_MIN = (128, 128), 16, 600, \
+    2e-3, 0.9
 
 
-def train_config(root, hw=None, mixed=True, lr=1e-4, schedule=None):
+def train_config(root, hw=None, mixed=True, lr=1e-4, schedule=None,
+                 aug=None, bank=False):
     """``configs/train_config.yaml`` on ``multigriddet_darknet`` (80
-    classes, COCO anchors), b8, Adam, with augmentation off, a 1-epoch
-    warmup and its files under ``root``; frames come from the loader's
-    ``.npy`` disk cache."""
+    classes, COCO anchors), b8, Adam, with the augmentation block ``aug``
+    (default off), a 1-epoch warmup, the device image bank when ``bank``,
+    and its files under ``root``; frames come from the loader's ``.npy``
+    disk cache."""
     return {
         'model': {'type': 'preset', 'preset': {
             'architecture': 'multigriddet_darknet',
@@ -891,14 +930,14 @@ def train_config(root, hw=None, mixed=True, lr=1e-4, schedule=None):
                  'val_annotation': os.path.join(root, 'val.txt')},
         'environment': {'mixed_precision': mixed},
         'data_loader': {'num_workers': 4, 'link_format': 'auto',
-                        'disk_cache_dir': os.path.join(root, 'cache')},
+                        'disk_cache_dir': os.path.join(root, 'cache'),
+                        'cache_images_device': bank},
         'training': {
             'batch_size': B, 'epochs': TRAIN_EPOCHS, 'learning_rate': lr,
             'transfer_epochs': 0, 'freeze_level': 1, 'loss_option': 2,
             'label_smoothing': 0.01, 'loss': dict(TRAIN_LOSS),
             'loss_normalization': ['batch'], 'class_weights': None,
-            'augmentation': {'enabled': False, 'rescale_interval': -1,
-                             'max_boxes_per_image': TRAIN_MAX_BOXES}},
+            'augmentation': dict(aug or AUG_OFF)},
         'optimizer': {'type': 'adam', 'learning_rate': lr, 'beta_1': 0.9,
                       'beta_2': 0.999, 'epsilon': 1e-7},
         'lr_schedule': schedule or {
@@ -954,22 +993,25 @@ def train_frames(count, seed, hw=None):
     return lines, np.stack(canvases), np.stack(boxes)
 
 
-def write_frames(root, name, lines, canvases, boxes, link_format):
+def write_frames(root, name, lines, canvases, boxes, link_format, hw=None,
+                 max_boxes=TRAIN_MAX_BOXES):
     """The annotation file, and each frame in ``HostImageLoader``'s own
     ``.npy`` disk cache, written by the loader's cache writer (the card's
     host has no Pillow to decode files)."""
     from multigriddet_tpu_torch.data.annotations import HostImageLoader
+    hw = hw or HW
     lines = [os.path.join(root, ln) for ln in lines]
     with open(os.path.join(root, name), 'w') as f:
         f.write('\n'.join(lines) + '\n')
-    loader = HostImageLoader(lines, HW, TRAIN_MAX_BOXES, num_workers=1,
+    loader = HostImageLoader(lines, hw, max_boxes, num_workers=1,
                              use_native=False,
                              disk_cache_dir=os.path.join(root, 'cache'),
                              link_format=link_format)
     for line, canvas, bx in zip(lines, canvases, boxes):
-        loader._disk_write(loader._disk_key(line, HW),
+        loader._disk_write(loader._disk_key(line, hw),
                            loader._to_parts(canvas), bx)
     loader.close()
+    return lines
 
 
 def train_step_parity(dev):
@@ -1107,15 +1149,117 @@ def train_step_parity(dev):
             'cpu_step_s': ct, 'cpu_f64_step_s': rt, 'failures': failures}
 
 
-def train_through_trainer(dev, root, val_batch):
-    """``MultiGridTrainer(config).train()`` for 2 epochs of 6 steps with
-    validation, then a checkpoint restored into a fresh state and the
-    exported ``final_model.msgpack`` served by ``MultiGridInference``."""
+def valid_rows(boxes):
+    return ((boxes[..., 2] - boxes[..., 0]) > 0) & (
+        (boxes[..., 3] - boxes[..., 1]) > 0)
+
+
+def augment_checks(dev):
+    """The augmented device stage on the card against the CPU from one
+    seed, b8 @608 yuv420, for the train config's block and for one with
+    every optional op on: images, boxes (the same slots zeroed) and
+    targets within ``AUG_*_ATOL``; the chain's invariants on the card's
+    output (capacity x8 plus the copy-paste slots, boxes inside the canvas
+    and at least ``MIN_BOX_PX`` a side) and mixup keeping every valid box
+    of a mosaic-spread batch.  Returns the report with the failed checks
+    under ``failures``; the phase raises at its end."""
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.data import augment as A
+    from multigriddet_tpu_torch.data.pipeline import (
+        _device_stage, calculate_expansion_factor, draw_chain)
+    from multigriddet_tpu_torch.ops.yuv import rgb_to_yuv420_np
+    from multigriddet_tpu_torch.utils.anchors import load_anchors
+    anchors = load_anchors(os.path.join(REPO, 'configs',
+                                        'yolov3_coco_anchor.txt'))
+    _, canvases, boxes = train_frames(B, SEED + 21)
+    parts = rgb_to_yuv420_np(canvases)
+    failures, report = [], {}
+    for name, cfg in (('train_config', TRAIN_AUG),
+                      ('every_op', EVERY_OP_AUG)):
+        out = {}
+        for tag, d in (('cpu', 'cpu'), ('card', dev)):
+            images, y_true, bx = _device_stage(
+                tuple(torch.from_numpy(p).to(d) for p in parts), boxes,
+                torch.Generator().manual_seed(SEED), cfg, anchors,
+                NUM_CLASSES, HW, True)
+            out[tag] = (images.cpu(), [y.cpu() for y in y_true], bx.cpu())
+        (ci, cy, cb), (gi, gy, gb) = out['cpu'], out['card']
+        img_err = float((gi - ci).abs().max())
+        box_err = float((gb - cb).abs().max())
+        same_slots = bool(torch.equal(valid_rows(gb), valid_rows(cb)))
+        tgt_err = max(float((g[..., :4] - c[..., :4]).abs().max())
+                      for g, c in zip(gy, cy))
+        discrete = all(torch.equal(g[..., 4:], c[..., 4:])
+                       for g, c in zip(gy, cy))
+        if not (img_err <= AUG_IMG_ATOL and box_err <= AUG_BOX_ATOL
+                and same_slots and tgt_err <= AUG_TARGET_ATOL and discrete):
+            failures.append(
+                f'{name}: card vs CPU images {img_err:.3e} (limit '
+                f'{AUG_IMG_ATOL:.3e}), boxes {box_err:.3e} (limit '
+                f'{AUG_BOX_ATOL}), same slots {same_slots}, targets '
+                f'{tgt_err:.3e} (limit {AUG_TARGET_ATOL}), discrete '
+                f'fields equal {discrete}')
+        cap = TRAIN_MAX_BOXES * calculate_expansion_factor(
+            cfg.get('mosaic_prob', 0), cfg.get('mixup_prob', 0))
+        if cfg.get('copypaste_prob', 0) > 0:
+            cap += cfg['copypaste_max']
+        live = gb[valid_rows(gb)]
+        inside = bool((live[:, :4] >= 0).all()
+                      and (live[:, [0, 2]] <= HW[1]).all()
+                      and (live[:, [1, 3]] <= HW[0]).all())
+        big = bool((live[:, 2] - live[:, 0] >= A.MIN_BOX_PX).all()
+                   and (live[:, 3] - live[:, 1] >= A.MIN_BOX_PX).all())
+        if tuple(gb.shape) != (B, cap, 5) or not (inside and big):
+            failures.append(f'{name}: invariants: boxes {tuple(gb.shape)} '
+                            f'(capacity {cap}), inside {inside}, at least '
+                            f'{A.MIN_BOX_PX} px {big}')
+        draws = draw_chain(torch.Generator().manual_seed(SEED), B,
+                           TRAIN_MAX_BOXES, cfg)
+        fired = {op: int(d['apply'].sum()) for op, d in draws.items()}
+        report[name] = {'image_err': img_err, 'box_err': box_err,
+                        'target_err': tgt_err, 'same_slots': same_slots,
+                        'capacity': cap, 'valid_boxes': int(len(live)),
+                        'fired': fired}
+        log(f'[train] augmented stage {name}, card vs CPU b{B} @{HW[0]}: '
+            f'images {img_err:.3e} (limit {AUG_IMG_ATOL:.3e}), boxes '
+            f'{box_err:.3e} px (limit {AUG_BOX_ATOL}), same slots zeroed '
+            f'{same_slots}, targets {tgt_err:.3e} (limit {AUG_TARGET_ATOL}), '
+            f'capacity {cap}, {len(live)} valid boxes; images each op '
+            f'fired on {fired}')
+    # mixup after mosaic: every quarter of the x8 capacity holds boxes
+    bx = torch.from_numpy(np.asarray(A.expand_box_capacity(boxes, 8))).to(
+        dev)
+    quarter = bx.shape[1] // 4
+    for q in range(1, 4):
+        bx[:, q * quarter:q * quarter + 25] = bx[:, :25]
+    _, mixed = A.apply_mixup(
+        torch.zeros((B, 8, 8, 3), device=dev), bx,
+        {'apply': torch.ones(B, dtype=torch.bool, device=dev),
+         'value': torch.full((B,), 0.5, device=dev)})
+    nv = valid_rows(bx).sum(1)
+    kept = bool(torch.equal(valid_rows(mixed).sum(1), nv + nv.roll(-1)))
+    if not kept:
+        failures.append('mixup lost valid boxes on the card')
+    report['mixup_keeps_every_box'] = kept
+    report['failures'] = failures
+    return report
+
+
+def train_through_trainer(dev, root, val_batch, bank=True):
+    """``MultiGridTrainer(config).train()`` with the train config's
+    augmentation block for 2 epochs of 6 steps with validation.  With
+    ``bank``: epoch 2 must train from the device image bank (and epoch 1
+    stream), a bank gather must equal the host path's parts bit for bit,
+    then a checkpoint is restored into a fresh state and the exported
+    ``final_model.msgpack`` served by ``MultiGridInference``.  Without:
+    every batch streams (the rate epoch 2 is compared with)."""
     import math
     import numpy as np
     import torch
     from multigriddet_tpu_torch.config import (build_model_for_training,
                                                create_optimizer_from_config)
+    from multigriddet_tpu_torch.data import MultiGridDataGenerator
     from multigriddet_tpu_torch.inference import MultiGridInference
     from multigriddet_tpu_torch.ops import cuda_nms
     from multigriddet_tpu_torch.training import (CheckpointManager,
@@ -1123,12 +1267,27 @@ def train_through_trainer(dev, root, val_batch):
                                                  apply_freeze,
                                                  create_train_state,
                                                  fetch_detections)
-    cfg = train_config(root)
+    cfg = train_config(os.path.join(root, 'bank' if bank else 'stream'),
+                       aug=TRAIN_AUG, bank=bank)
+    cfg['data'] = {'train_annotation': os.path.join(root, 'train.txt'),
+                   'val_annotation': os.path.join(root, 'val.txt')}
+    cfg['data_loader']['disk_cache_dir'] = os.path.join(root, 'cache')
     cuda_nms.popmax_nms.launches = 0
     cuda_nms.greedy_nms.launches = 0
+    kinds = []
+    raw = MultiGridDataGenerator.iter_raw
+
+    def counted(gen):
+        for item in raw(gen):
+            kinds.append(item[0])
+            yield item
     t0 = time.perf_counter()
     trainer = MultiGridTrainer(cfg, device=dev)
-    history = trainer.train()
+    MultiGridDataGenerator.iter_raw = counted
+    try:
+        history = trainer.train()
+    finally:
+        MultiGridDataGenerator.iter_raw = raw
     seconds = time.perf_counter() - t0
     launches = (cuda_nms.popmax_nms.launches, cuda_nms.greedy_nms.launches)
     if launches != (0, 0):
@@ -1144,6 +1303,40 @@ def train_through_trainer(dev, root, val_batch):
     with open(os.path.join(cfg['output']['log_dir'], 'history.jsonl')) as f:
         if len(f.read().splitlines()) != TRAIN_EPOCHS:
             raise AssertionError('history.jsonl does not hold 2 records')
+    steps = TRAIN_FRAMES // B
+    want = ['host'] * steps + ['bank' if bank else 'host'] * steps
+    if kinds != want:
+        raise AssertionError(f'batches by source {kinds}, want {want}')
+    ips = [r['images_per_sec'] for r in history]
+    if not bank:
+        log(f'[train] trainer, augmentation on, streamed: losses '
+            f'{[round(r["loss"], 4) for r in history]}, images/s '
+            f'{[round(v, 1) for v in ips]}')
+        return {'history': history, 'seconds': seconds,
+                'epoch2_images_per_sec': ips[-1]}
+
+    # a bank gather is the host path's parts, bit for bit
+    cache = trainer.train_gen._dcache
+    lines = trainer.train_lines[:B]
+    banks, idx, bank_boxes = cache.gather_args(HW, lines, TRAIN_MAX_BOXES)
+    pixels, host_boxes = trainer.train_gen.loader.load_batch(lines, HW)
+    pixels = pixels if isinstance(pixels, tuple) else (pixels,)
+    rows = torch.from_numpy(idx).to(dev)
+    if not (len(banks) == len(pixels) == 3
+            and all(torch.equal(bk[rows].cpu(), torch.from_numpy(p))
+                    for bk, p in zip(banks, pixels))
+            and np.array_equal(bank_boxes, host_boxes)):
+        raise AssertionError('a bank gather differs from the host path')
+    def held(c):
+        return sum(b.numel() for bk in c._banks.values() for b in bk)
+    bank_bytes = {'train': held(cache),
+                  'val': held(trainer.val_gen._dcache),
+                  'ledger': cache._ledger['bytes'],
+                  'shared': cache._ledger is trainer.val_gen._dcache._ledger}
+    if not (bank_bytes['shared'] and bank_bytes['ledger']
+            == bank_bytes['train'] + bank_bytes['val']):
+        raise AssertionError(f'the ledger does not count both banks: '
+                             f'{bank_bytes}')
 
     # a checkpoint restores into a fresh state
     mgr = CheckpointManager(cfg['callbacks']['checkpoint']['save_dir'])
@@ -1176,17 +1369,18 @@ def train_through_trainer(dev, root, val_batch):
     bx, cl, sc, va = fetch_detections(engine.infer_batch(val_batch))
     if not (np.isfinite(bx[va]).all() and np.isfinite(sc[va]).all()):
         raise AssertionError('the exported model served non-finite output')
-    ips = [r['images_per_sec'] for r in history]
-    log(f'[train] trainer: {TRAIN_EPOCHS} epochs of {TRAIN_FRAMES // B} '
-        f'steps in {seconds:.1f} s, losses '
-        f'{[round(r["loss"], 4) for r in history]}, val '
-        f'{[round(r["val_loss"], 4) for r in history]}, images/s '
-        f'{[round(v, 1) for v in ips]}; checkpoint {step} restored; '
-        f'{os.path.getsize(final) / 2 ** 20:.1f} MiB export served '
-        f'({int(va.sum())} detections); NMS launches while training '
+    log(f'[train] trainer, augmentation on, bank on: {TRAIN_EPOCHS} epochs '
+        f'of {steps} steps in {seconds:.1f} s (epoch 1 streamed, epoch 2 '
+        f'from the bank), losses {[round(r["loss"], 4) for r in history]}, '
+        f'val {[round(r["val_loss"], 4) for r in history]}, images/s '
+        f'{[round(v, 1) for v in ips]}; bank gather equal to the host path '
+        f'bit for bit; bank bytes {bank_bytes}; checkpoint {step} '
+        f'restored; {os.path.getsize(final) / 2 ** 20:.1f} MiB export '
+        f'served ({int(va.sum())} detections); NMS launches while training '
         f'{launches}')
     return {'history': history, 'seconds': seconds, 'restored_step': step,
-            'epoch2_images_per_sec': ips[-1], 'launches': list(launches)}
+            'epoch2_images_per_sec': ips[-1], 'launches': list(launches),
+            'bank_bytes': bank_bytes}
 
 
 def count_ops(fn):
@@ -1224,13 +1418,16 @@ def profile_calls(fn, calls):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return None
-    by_group = defaultdict(float)
+    by_group, by_name = defaultdict(float), defaultdict(float)
     for e in kernels:
         by_group[_group(e.name)] += e.time_range.end - e.time_range.start
+        by_name[e.name[:60]] += e.time_range.end - e.time_range.start
     busy = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {'kernels': len(kernels) / calls,
             'group_ms': {k: v / calls / 1e3
                          for k, v in sorted(by_group.items())},
+            'top_ms': {k: round(v / calls / 1e3, 3) for k, v in top},
             'device_busy_share': busy / wall_us,
             'wall_ms': wall_us / calls / 1e3}
 
@@ -1279,6 +1476,70 @@ def overfit_and_times(dev, root, canvases, boxes):
                                TIMED_STEPS, WARMUP_STEPS)
     times['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
     times['img_per_s'] = B / (times['step_ms'] / 1e3)
+    # the same step with the train config's augmentation (new draws each
+    # call), and the device stage alone (augment + encode), off and on
+    aug_step, _ = make_fused_train_step(anchors, NUM_CLASSES, loss_cfg,
+                                        aug_cfg=TRAIN_AUG)
+    times['step_aug_ms'] = cuda_ms(
+        lambda: aug_step(state, parts, boxes, gen), TIMED_STEPS, WARMUP_STEPS)
+    times['img_per_s_aug'] = B / (times['step_aug_ms'] / 1e3)
+    from multigriddet_tpu_torch.data.pipeline import _device_stage
+    for key, cfg_ in (('stage_ms', AUG_OFF), ('stage_aug_ms', TRAIN_AUG)):
+        times[key] = cuda_ms(lambda: _device_stage(
+            parts, boxes, gen, cfg_, anchors, NUM_CLASSES, HW, True),
+            TIMED_STEPS, WARMUP_STEPS)
+    # the augmented stage's parts: the draws on the host, the chain on
+    # the card (draws already there), and where its device time goes
+    from multigriddet_tpu_torch.data import augment as A
+    from multigriddet_tpu_torch.data.pipeline import (apply_chain,
+                                                      draw_chain,
+                                                      pixels_to_f32)
+    t_draw = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        draws = draw_chain(gen, B, TRAIN_MAX_BOXES, TRAIN_AUG)
+    times['aug_draw_host_ms'] = (time.perf_counter() - t_draw) * 1e3 / \
+        TIMED_STEPS
+    draws = A.draws_to(draws, dev)
+    boxes_dev = torch.from_numpy(boxes).to(dev)
+    images_f32 = pixels_to_f32(parts)
+    times['aug_apply_ms'] = cuda_ms(lambda: apply_chain(
+        images_f32, boxes_dev, draws, TRAIN_AUG), TIMED_STEPS, WARMUP_STEPS)
+    times['stage_aug_profile'] = profile_calls(lambda: _device_stage(
+        parts, boxes, gen, TRAIN_AUG, anchors, NUM_CLASSES, HW, True), 3)
+    times['aug_apply_profile'] = profile_calls(lambda: apply_chain(
+        images_f32, boxes_dev, draws, TRAIN_AUG), 3)
+    # the encoder at mosaic's box counts: mosaic on every image
+    mosaic_boxes = _device_stage(
+        parts, boxes, torch.Generator().manual_seed(SEED),
+        dict(TRAIN_AUG, mosaic_prob=1.0), anchors, NUM_CLASSES, HW,
+        True)[2]
+    times['mosaic_max_valid_boxes'] = int(valid_rows(mosaic_boxes).sum(
+        1).max())
+    times['mosaic_capacity'] = int(mosaic_boxes.shape[1])
+    times['encode_mosaic_ops'] = count_ops(lambda: encode_targets(
+        mosaic_boxes, anchors, NUM_CLASSES, HW, device=dev))
+    times['encode_mosaic_ms'] = cuda_ms(lambda: encode_targets(
+        mosaic_boxes, anchors, NUM_CLASSES, HW, device=dev), TIMED_STEPS,
+        WARMUP_STEPS)
+    log(f'[train] augmentation (train config block) b{B} @{HW[0]} bf16: '
+        f'fused step {times["step_aug_ms"]:.3f} ms '
+        f'({times["img_per_s_aug"]:.1f} img/s) vs {times["step_ms"]:.3f} ms '
+        f'off; device stage alone (u8 -> augment -> encode) '
+        f'{times["stage_aug_ms"]:.3f} ms vs {times["stage_ms"]:.3f} ms off; '
+        f'encoder at mosaic\'s box counts (mosaic on all {B}, '
+        f'{times["mosaic_max_valid_boxes"]} valid boxes at most of '
+        f'{times["mosaic_capacity"]} slots): {times["encode_mosaic_ops"]} '
+        f'ops, {times["encode_mosaic_ms"]:.3f} ms; the chain alone on the '
+        f'card (draws there) {times["aug_apply_ms"]:.3f} ms, the draws on '
+        f'the host {times["aug_draw_host_ms"]:.3f} ms')
+    for key in ('stage_aug_profile', 'aug_apply_profile'):
+        prof = times[key]
+        if prof:
+            log(f'[train] profiled {key[:-8]}: {prof["wall_ms"]:.1f} ms '
+                f'wall, {prof["kernels"]:.0f} CUDA kernels, device busy '
+                f'{prof["device_busy_share"]:.1%}, device ms by group '
+                f'{ {k: round(v, 2) for k, v in prof["group_ms"].items()} }'
+                f', top kernels {prof["top_ms"]}')
     times['encode_ms'] = cuda_ms(lambda: encode_targets(
         boxes, anchors, NUM_CLASSES, HW, device=dev), TIMED_STEPS,
         WARMUP_STEPS)
@@ -1337,11 +1598,14 @@ def overfit_and_times(dev, root, canvases, boxes):
 
 
 def phase_train(dev, smi):
-    """Phase 7: step parity card vs CPU, the trainer through its entry
-    point, an overfit run and the train step's times."""
+    """Phase 7: step parity card vs CPU, the augmented device stage card vs
+    CPU, the trainer through its entry point with augmentation and the
+    device bank on (and streamed), an overfit run and the train step's
+    times."""
     import shutil
     t0 = time.perf_counter()
-    report = {'parity': train_step_parity(dev)}
+    report = {'parity': train_step_parity(dev),
+              'augment': augment_checks(dev)}
     root = os.path.join(REPO, 'build', 'chip_smoke_train')
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1350,17 +1614,127 @@ def phase_train(dev, smi):
     vlines, vcanvases, vboxes = train_frames(VAL_FRAMES, SEED + 12)
     write_frames(root, 'val.txt', vlines, vcanvases, vboxes, 'rgb')
     report['trainer'] = train_through_trainer(dev, root, vcanvases[:B])
+    report['trainer_streamed'] = train_through_trainer(dev, root, None,
+                                                       bank=False)
     report['step'] = overfit_and_times(dev, root, canvases[:B], boxes[:B])
     report['step']['epoch2_images_per_sec'] = \
         report['trainer']['epoch2_images_per_sec']
+    report['step']['epoch2_images_per_sec_streamed'] = \
+        report['trainer_streamed']['epoch2_images_per_sec']
     shutil.rmtree(root, ignore_errors=True)
     report['seconds'] = time.perf_counter() - t0
-    log(f'[train] trainer epoch 2: '
-        f'{report["step"]["epoch2_images_per_sec"]:.1f} img/s; card: {smi}')
-    if report['parity']['failures']:
-        raise AssertionError('train step parity: ' + '; '.join(
-            report['parity']['failures']))
+    log(f'[train] trainer epoch 2, augmentation on: '
+        f'{report["step"]["epoch2_images_per_sec"]:.1f} img/s from the '
+        f'bank, {report["step"]["epoch2_images_per_sec_streamed"]:.1f} '
+        f'img/s streamed; card: {smi}')
+    failures = report['parity']['failures'] + report['augment']['failures']
+    if failures:
+        raise AssertionError('train phase: ' + '; '.join(failures))
     return report
+
+
+def phase_overfit_map(dev, smi):
+    """Phase 8 (ROADMAP item 11): ``tools/validate_learning.py`` on the
+    card.  ``multigriddet_tiny`` (one anchor a level) trains for 600
+    epochs at b8 with Adam 2e-3 and augmentation off on 16 128x128 frames
+    of two classes (a dark gray field, one red or green box; painted with
+    numpy and fed through the loader's ``.npy`` disk cache, then the
+    device bank), then the fused infer step (confidence 0.15, 10 boxes)
+    and ``calculate_map`` score it.  Fails below mAP50 ``MAP50_MIN``."""
+    import shutil
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.config import create_optimizer_from_config
+    from multigriddet_tpu_torch.data import MultiGridDataGenerator
+    from multigriddet_tpu_torch.evaluation import calculate_map
+    from multigriddet_tpu_torch.losses import LossConfig
+    from multigriddet_tpu_torch.models import (create_model,
+                                               load_flax_variables,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.training import (create_train_state,
+                                                 fetch_detections,
+                                                 make_infer_step,
+                                                 make_train_step)
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, 'build', 'chip_smoke_overfit')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.RandomState(0)
+    canvases, boxes, lines = [], [], []
+    for i in range(MAP_FRAMES):
+        canvas = np.full((*MAP_HW, 3), rng.randint(0, 60), np.uint8)
+        x1, y1 = rng.randint(5, 60), rng.randint(5, 60)
+        w, h = rng.randint(30, 60), rng.randint(30, 60)
+        cls = i % 2
+        # PIL's rectangle [x1, y1, x1 + w, y1 + h] includes both ends
+        canvas[y1:y1 + h + 1, x1:x1 + w + 1] = ((230, 30, 30) if cls == 0
+                                                else (30, 230, 30))
+        bx = np.zeros((4, 5), np.float32)
+        bx[0] = [x1, y1, x1 + w, y1 + h, cls]
+        canvases.append(canvas)
+        boxes.append(bx)
+        lines.append(f'frames/f{i:02d}.jpg {x1},{y1},{x1 + w},{y1 + h},'
+                     f'{cls}')
+    canvases, boxes = np.stack(canvases), np.stack(boxes)
+    lines = write_frames(root, 'ann.txt', lines, canvases, boxes, 'yuv420',
+                         hw=MAP_HW, max_boxes=4)
+    anchors = [np.array([[48, 48]], np.float32),
+               np.array([[24, 24]], np.float32),
+               np.array([[12, 12]], np.float32)]
+    gen = MultiGridDataGenerator(
+        lines, anchors, 2, MAP_HW, batch_size=8, max_boxes=4,
+        augment={'enabled': False}, train=True, seed=0, num_workers=2,
+        disk_cache_dir=os.path.join(root, 'cache'),
+        cache_images_device=True, device=dev)
+    model = create_model('multigriddet_tiny', num_anchors=(1, 1, 1),
+                         num_classes=2)
+    load_flax_variables(model, *random_flax_variables(model, seed=0))
+    model.to(dev).train()
+    opt = create_optimizer_from_config(
+        {'training': {'learning_rate': MAP_LR},
+         'optimizer': {'type': 'adam', 'beta_1': 0.9, 'beta_2': 0.999,
+                       'epsilon': 1e-8},
+         'lr_schedule': {'type': 'constant'}}, model.parameters())
+    state = create_train_state(model, opt)
+    step = make_train_step(anchors, 2, MAP_HW, LossConfig(
+        loss_option=2, coord_scale=5.0, no_object_scale=0.5))
+    losses = []
+    t_train = time.perf_counter()
+    for epoch in range(MAP_EPOCHS):
+        for images, y_true, _ in gen:
+            state, m = step(state, images, y_true)
+        if epoch % 100 == 0 or epoch == MAP_EPOCHS - 1:
+            losses.append(float(m['loss']))
+    train_s = time.perf_counter() - t_train
+    gen.close()
+    model.eval()
+    infer = make_infer_step(model, anchors, MAP_HW, confidence=0.15,
+                            max_boxes=10, pre_nms_top_k=64)
+    preds, gts = {}, {}
+    for start in range(0, MAP_FRAMES, 8):
+        bx, cl, sc, va = fetch_detections(infer(
+            torch.from_numpy(canvases[start:start + 8]).to(dev)))
+        for j in range(len(va)):
+            i = start + j
+            preds[i] = {'boxes': bx[j][va[j]], 'classes': cl[j][va[j]],
+                        'scores': sc[j][va[j]]}
+            b = boxes[i][:1]
+            gts[i] = {'boxes': np.stack([b[:, 0], b[:, 1], b[:, 2] - b[:, 0],
+                                         b[:, 3] - b[:, 1]], -1),
+                      'classes': b[:, 4].astype(np.int32)}
+    map50 = float(calculate_map(preds, gts, 2, iou_thresholds=[0.5])['mAP50'])
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f'[overfit] multigriddet_tiny @{MAP_HW[0]}, {MAP_FRAMES} frames, '
+        f'{MAP_EPOCHS} epochs at b8 (Adam {MAP_LR}, float32): loss every '
+        f'100 epochs {[round(v, 4) for v in losses]}, final '
+        f'{losses[-1]:.4f}; mAP50 {map50:.4f} (limit {MAP50_MIN}); '
+        f'training {train_s:.1f} s, phase {seconds:.1f} s; card: {smi}')
+    if not (np.isfinite(losses).all() and map50 >= MAP50_MIN):
+        raise AssertionError(f'overfit: mAP50 {map50} < {MAP50_MIN}, '
+                             f'losses {losses}')
+    return {'map50': map50, 'final_loss': losses[-1], 'losses': losses,
+            'train_seconds': train_s, 'seconds': seconds}
 
 
 def main(argv=None) -> int:
@@ -1391,6 +1765,7 @@ def main(argv=None) -> int:
     log(f'[evaluate] phase took {evaluate["seconds"]:.1f} s')
     train = phase_train(torch.device('cuda'), smi)
     log(f'[train] phase took {train["seconds"]:.1f} s')
+    overfit = phase_overfit_map(torch.device('cuda'), smi)
 
     src = 'multigriddet_tpu_torch/csrc/nms.cu'
     replaces = {'popmax_nms': 'multigriddet_tpu/ops/pallas_nms.py:115',
@@ -1413,6 +1788,7 @@ def main(argv=None) -> int:
                        'serve': times, 'launches': launches,
                        'f32_parity_rel_err': f32_err, 'kernels': kernels,
                        'evaluate': evaluate, 'train': train,
+                       'overfit_map': overfit,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},
                        'kernel_call_ms': {k['name']: k['call_ms']

@@ -134,14 +134,13 @@ def make_fused_train_step(anchors: Sequence[np.ndarray], num_classes: int,
     Returns ``(host_step, bank_step)``: ``host_step(state, parts, boxes,
     generator)`` takes the generator's link-format pixels (a u8 rgb batch,
     a 1-tuple of one, or the yuv420 3-tuple) and ``[B, N, 5]`` boxes, runs
-    u8 -> f32 -> /255 -> 9-cell encoding, then the train step.
-    ``bank_step`` feeds from the device image bank, which is not ported
-    yet (ROADMAP Queue 1 item 10): it raises.
+    the device stage (u8 -> f32, the augmentation chain of ``aug_cfg``
+    drawn from ``generator`` when ``train_aug``, /255, 9-cell encoding),
+    then the train step.  ``bank_step(state, banks, idx, boxes,
+    generator)`` does the same from the rows ``idx`` of the device image
+    bank (``banks``: the per-part bank tuple), gathered on the device.
     """
-    from ..data.pipeline import (AUGMENT_NOT_PORTED, BANK_NOT_PORTED,
-                                 _device_stage, augmentation_enabled)
-    if augmentation_enabled(aug_cfg, train_aug):
-        raise NotImplementedError(AUGMENT_NOT_PORTED)
+    from ..data.pipeline import _device_stage, _device_stage_bank
     anchors = [np.asarray(a, np.float32) for a in anchors]
     core = _build_train_core(anchors, num_classes, loss_cfg, class_weights,
                              strides, freeze_level, ema_decay)
@@ -156,7 +155,13 @@ def make_fused_train_step(anchors: Sequence[np.ndarray], num_classes: int,
         return core(state, images, y_true)
 
     def bank_step(state, banks, idx, boxes, generator=None):
-        raise NotImplementedError(BANK_NOT_PORTED)
+        if not isinstance(banks, (tuple, list)):
+            banks = (banks,)
+        hw = tuple(int(s) for s in banks[0].shape[1:3])
+        images, y_true, _ = _device_stage_bank(
+            banks, idx, boxes, generator, aug_cfg, anchors, num_classes, hw,
+            train_aug, multi_anchor_assign)
+        return core(state, images, y_true)
 
     return host_step, bank_step
 

@@ -20,8 +20,11 @@ Each batch goes through the fused train step (the generator's raw u8 batch
 -> device stage -> train step) unless ``training.fused_input_stage`` is
 false.  The port trains on one device: data parallel, spatial partitioning
 and multi-process runs wait for ROADMAP Queue 1 item 13, activation
-checkpointing for item 16, training augmentation and the device image bank
-for item 10; asking for any of them raises ``NotImplementedError``.
+checkpointing for item 16; asking for any of them raises
+``NotImplementedError``.  With ``data_loader.cache_images_device`` the
+decoded images stay in a device bank (one byte budget,
+``device_cache_budget_gb``, for the train and validation banks together),
+and epoch 2 on trains from it.
 """
 
 from __future__ import annotations
@@ -59,10 +62,6 @@ def refuse_unported(config: Dict[str, Any]):
         raise NotImplementedError(
             'environment.distributed (multi-process training) is not ported '
             'yet (ROADMAP Queue 1 item 13: the port trains on one device)')
-    loader = config.get('data_loader', {}) or {}
-    if loader.get('cache_images_device'):
-        from ..data.pipeline import BANK_NOT_PORTED
-        raise NotImplementedError(BANK_NOT_PORTED)
 
 
 @contextlib.contextmanager
@@ -117,6 +116,14 @@ class MultiGridTrainer:
         loader_cfg = self.config.get('data_loader', {}) or {}
         workers = int(loader_cfg.get('num_workers', 8))
         disk_cache_dir = loader_cfg.get('disk_cache_dir')
+        # the device image bank: one byte ledger for the train and the
+        # validation caches, so the budget bounds them together
+        cache_device = bool(loader_cfg.get('cache_images_device', False))
+        bank = dict(cache_images_device=cache_device,
+                    device_cache_budget=int(float(loader_cfg.get(
+                        'device_cache_budget_gb', 4.0)) * (1 << 30)),
+                    device_cache_ledger={'bytes': 0} if cache_device
+                    else None)
         self.train_gen = MultiGridDataGenerator(
             self.train_lines, self.spec['anchors'], self.spec['num_classes'],
             hw, batch_size, max_boxes, aug_cfg, train=True,
@@ -126,12 +133,12 @@ class MultiGridTrainer:
             cache_images=bool(loader_cfg.get('cache_images', False)),
             disk_cache_dir=disk_cache_dir,
             link_format=loader_cfg.get('link_format', 'auto'),
-            device=self.device)
+            device=self.device, **bank)
         self.val_gen = MultiGridDataGenerator(
             self.val_lines, self.spec['anchors'], self.spec['num_classes'],
             hw, batch_size, max_boxes, {'enabled': False}, train=False,
             num_workers=workers, disk_cache_dir=disk_cache_dir,
-            device=self.device) if self.val_lines else None
+            device=self.device, **bank) if self.val_lines else None
 
     def build_model(self, rng_seed: int = 0):
         """The detector on the device with the seeded flax-like init, then
@@ -197,9 +204,14 @@ class MultiGridTrainer:
 
     def _train_batches(self, state, train_step):
         if self._fused_steps is not None:
-            host_step, _ = self._fused_steps
-            for _, parts, boxes, _, gen in self.train_gen.iter_raw():
-                yield host_step(state, parts, boxes, gen)
+            host_step, bank_step = self._fused_steps
+            for item in self.train_gen.iter_raw():
+                if item[0] == 'bank':
+                    _, banks, idx, boxes, _, gen = item
+                    yield bank_step(state, banks, idx, boxes, gen)
+                else:
+                    _, parts, boxes, _, gen = item
+                    yield host_step(state, parts, boxes, gen)
             return
         for images, y_true, _ in self.train_gen:
             yield train_step(state, images, y_true)

@@ -20,6 +20,7 @@ from PIL import Image
 from multigriddet_tpu_torch.data import native
 from multigriddet_tpu_torch.inference import MultiGridInference
 from multigriddet_tpu_torch.models import create_model, random_flax_variables
+from test_torch_native_oracle import jax_native_oracle  # noqa: F401
 
 BOX_ATOL, SCORE_ATOL = 2e-3, 1e-5
 

@@ -30,6 +30,7 @@ from multigriddet_tpu_torch.evaluation import (MultiGridEvaluator,
                                                generate_evaluation_report)
 from multigriddet_tpu_torch.models import (create_model,
                                            random_flax_variables)
+from test_torch_native_oracle import jax_native_oracle  # noqa: F401
 
 HW = (64, 64)
 N_IMAGES = 11

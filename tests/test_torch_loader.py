@@ -18,6 +18,7 @@ from PIL import Image
 
 from multigriddet_tpu.data import annotations as jax_ann
 from multigriddet_tpu_torch.data import annotations, native
+from test_torch_native_oracle import jax_native_oracle  # noqa: F401
 
 
 @pytest.fixture(scope='module')

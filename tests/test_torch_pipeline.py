@@ -108,16 +108,27 @@ def test_producer_errors_reach_the_consumer(lines):
 
 
 def test_unported_stage_options_raise(lines):
+    """Augmentation and the device bank are ported: a train generator with
+    either builds and yields augmented batches (the ops' parity:
+    test_torch_augment.py, the bank's: test_torch_bank.py); an evaluation
+    generator never augments."""
     args = dict(anchors=ANCHORS, num_classes=NC, input_shape=(64, 64),
-                device='cpu')
+                batch_size=4, max_boxes=6, num_workers=2, device='cpu')
     for aug in (None, {'enabled': True}, {'mosaic_prob': 0.3}):
-        with pytest.raises(NotImplementedError, match='item 10'):
-            MultiGridDataGenerator(lines, augment=aug, **args)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        MultiGridDataGenerator(lines, augment={'enabled': False},
-                               cache_images_device=True, **args)
-    # an evaluation generator never augments
-    MultiGridDataGenerator(lines, train=False, **args).close()
+        gen = MultiGridDataGenerator(lines, augment=aug, **args)
+        images, _, boxes = next(iter(gen))
+        factor = 4 if aug and aug.get('mosaic_prob') else 1
+        assert images.shape == (4, 64, 64, 3)
+        assert boxes.shape == (4, 6 * factor, 5)
+        gen.close()
+    gen = MultiGridDataGenerator(lines, augment={'enabled': False},
+                                 cache_images_device=True, **args)
+    assert gen._dcache is not None
+    gen.close()
+    gen = MultiGridDataGenerator(lines, train=False, **args)
+    _, _, boxes = next(iter(gen))
+    assert boxes.shape == (4, 6, 5)
+    gen.close()
 
 
 def test_capacity_and_normalize_equal_jax():

@@ -214,9 +214,13 @@ def test_reduce_on_plateau_and_early_stopping(dataset, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('change,item', [
-    ({'training': {'augmentation': {'enabled': True}}}, 'item 10'),
-    ({'training': {'augmentation': {'mosaic_prob': 0.3}}}, 'item 10'),
-    ({'data_loader': {'cache_images_device': True}}, 'item 10'),
+    # ported since (augmentation and the device bank): these train
+    pytest.param({'training': {'augmentation': {'enabled': True}}}, None,
+                 id='change0-item 10'),
+    pytest.param({'training': {'augmentation': {'mosaic_prob': 0.3}}}, None,
+                 id='change1-item 10'),
+    pytest.param({'data_loader': {'cache_images_device': True}}, None,
+                 id='change2-item 10'),
     ({'environment': {'remat': True}}, 'item 16'),
     ({'environment': {'spatial_partition': 2}}, 'item 13'),
     ({'environment': {'distributed': {'num_processes': 2}}}, 'item 13')])
@@ -228,6 +232,11 @@ def test_unported_options_raise_before_any_step(dataset, tmp_path, change,
             cfg['training']['augmentation'] = values['augmentation']
         else:
             cfg[block] = dict(cfg.get(block, {}), **values)
+    if item is None:
+        cfg['training'].update(epochs=1, transfer_epochs=0)
+        history = MultiGridTrainer(cfg, device='cpu').train()
+        assert len(history) == 1 and math.isfinite(history[0]['loss'])
+        return
     with pytest.raises(NotImplementedError, match=item):
         MultiGridTrainer(cfg, device='cpu').train()
     assert not (tmp_path / 'logs' / 'history.jsonl').exists()
@@ -249,6 +258,38 @@ def test_train_cli_on_cpu_and_needs_a_gpu(dataset, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         main(['--config', str(path)])
+
+
+def test_train_cli_runs_the_shipped_config(dataset, tmp_path, monkeypatch):
+    """``python -m multigriddet_tpu_torch.train`` on
+    ``configs/train_config.yaml`` byte for byte (its augmentation block on:
+    mosaic 0.3, mixup 0.1), with its model YAML beside it and the eight
+    images as its train annotation, on the CPU at a 64x64 canvas for one
+    epoch of two batches."""
+    import os
+    import shutil
+    from multigriddet_tpu_torch.train import main
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    conf = tmp_path / 'configs'
+    (conf / 'models').mkdir(parents=True)
+    (conf / 'data').mkdir()
+    shutil.copyfile(os.path.join(repo, 'configs', 'train_config.yaml'),
+                    conf / 'train_config.yaml')
+    shutil.copyfile(os.path.join(repo, 'configs', 'models',
+                                 'multigriddet_darknet.yaml'),
+                    conf / 'models' / 'multigriddet_darknet.yaml')
+    shutil.copyfile(dataset / 'train.txt', conf / 'data' /
+                    'coco_train2017.txt')
+    monkeypatch.chdir(tmp_path)
+    assert main(['--config', 'configs/train_config.yaml', '--device', 'cpu',
+                 '--epochs', '1', '--batch-size', '4', '--input-shape', '64',
+                 '64']) == 0
+    records = [json.loads(ln) for ln in (
+        tmp_path / 'logs' / 'training' / 'history.jsonl').read_text()
+        .splitlines()]
+    assert len(records) == 1 and records[0]['steps'] == 2
+    assert _finite(records[0])
+    assert (tmp_path / 'trained_models' / 'final_model.msgpack').exists()
 
 
 def test_epoch_losses_match_the_jax_trainer(dataset, tmp_path):

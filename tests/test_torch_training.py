@@ -516,10 +516,22 @@ def test_fused_train_step_matches_jax(weights, jmodel, link):
         model, jax.tree_util.tree_map(np.asarray, jstate.params),
         jax.tree_util.tree_map(np.asarray, jstate.batch_stats),
         2e-6 + 1e-3 * LR, noise=(_moment_trees(jstate.opt_state)[0], 2 * LR))
-    with pytest.raises(NotImplementedError, match='item 10'):
-        bank_step(state, None, None, boxes, gen)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        make_fused_train_step(ANCHORS, NC, aug_cfg={'mosaic_prob': 0.3})
+    # the bank step from rows of a device bank (here the CPU) that hold the
+    # same pixels in another order equals the host step
+    perm = np.array([1, 0])
+    banks = tuple(torch.from_numpy(np.ascontiguousarray(p[perm]))
+                  for p in parts)
+    bmodel = _torch_model(weights)
+    bstate = create_train_state(bmodel, builder.create_optimizer_from_config(
+        config, bmodel.parameters()))
+    _, bm = bank_step(bstate, banks, perm, boxes,
+                      torch.Generator().manual_seed(0))
+    for k in tm:
+        assert torch.equal(bm[k], tm[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(bmodel.state_dict().values(),
+                                                  model.state_dict().values()))
+    # augmentation settings build (the chain's parity: test_torch_augment)
+    make_fused_train_step(ANCHORS, NC, aug_cfg={'mosaic_prob': 0.3})
 
 
 def test_calibration_matches_jax(weights, jmodel):
