@@ -81,6 +81,29 @@
    frames of two classes, then the fused infer step and ``calculate_map``
    score it: mAP50 must reach 0.9.
 
+9. Zoo: each preset beyond Darknet53 (``multigriddet_darknet_spp``,
+   ``_darknet_lite``, ``_csp_darknet``, ``_darknet_panet``, ``_resnet``,
+   ``_mobile``) and one ``model.type: custom`` composition (ResNet-101 +
+   ``multigrid_fpn`` + ``multigrid_lite``), at full width (80 classes, COCO
+   anchors, 608x608, bfloat16 convs, seeded random weights): (a) two
+   batches of eight served through ``MultiGridInference`` with
+   ``pallas_fused``, one pop-max launch a batch, batch 0 bit-equal to the
+   plain pop-max on the same pool, the step timed; (b) the float32
+   forward at b1 (TF32 off) within ``F32_PARITY_RTOL`` of the CPU's; (c)
+   one fused train step (Adam, augmentation off) with a finite loss and
+   every running variance moved, then its time and peak memory at b8;
+   (d) float64 gradients at b2 @128 within ``GRAD64_RTOL`` of the CPU's.
+   Then ``environment.remat`` on ``multigriddet_darknet``: ``True`` and
+   ``'full'`` each give the plain step's loss, gradients, parameters and
+   running statistics (float32, b2 @416, deterministic cuDNN, one SGD
+   step), and the step's time and peak memory at b8 @608 bf16 for plain,
+   ``True`` and ``'full'``.
+
+``--step-times CHECKOUT ...`` only times the darknet serve and train
+steps of the port in each checkout given, one process each, and exits:
+the way to compare two commits on one card (parent, change, change,
+parent).
+
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, when there is no GPU or any phase fails.  Needs no YAML, Pillow or
@@ -1737,10 +1760,411 @@ def phase_overfit_map(dev, smi):
             'train_seconds': train_s, 'seconds': seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the model zoo and activation checkpointing
+# ---------------------------------------------------------------------------
+
+ZOO_PRESETS = ('multigriddet_darknet_spp', 'multigriddet_darknet_lite',
+               'multigriddet_csp_darknet', 'multigriddet_darknet_panet',
+               'multigriddet_resnet', 'multigriddet_mobile')
+# model.type: custom -- ResNet-101 + the FPN neck + the lite head
+ZOO_CUSTOM = {'backbone': {'type': 'resnet101'},
+              'neck': {'type': 'multigrid_fpn'},
+              'head': {'type': 'multigrid_lite'}}
+# the zoo's steps: the median of ZOO_WINDOWS windows of ZOO_TIMED calls
+# each, after ZOO_WARMUP (one window's mean moved by up to 40% between
+# models of the same size in one run: the host's hiccups)
+ZOO_SERVE_BATCHES, ZOO_WINDOWS, ZOO_TIMED, ZOO_WARMUP = 2, 4, 5, 3
+ZOO_GRAD_B, ZOO_GRAD_HW = 2, (128, 128)
+REMAT_B, REMAT_HW, REMAT_LR = 2, (416, 416), 1e-2
+# remat against the plain step, float32 on one card with deterministic
+# cuDNN: the checkpointed backbone runs the same kernels on the same
+# inputs, so only the loss's atomic accumulations may differ (a few ulps of
+# a gradient element).  Loss and running statistics relative (of max(1,
+# |v|)); gradients of each tensor's largest |grad|; parameters after one
+# SGD step (lr 1e-2, no momentum: Adam's first update would turn a
+# rounding-level gradient into a full learning-rate step) absolute
+REMAT_LOSS_RTOL, REMAT_STAT_RTOL, REMAT_GRAD_RTOL, REMAT_PARAM_ATOL = (
+    1e-6, 1e-6, 1e-5, 1e-6)
+
+
+def windowed_ms(fn):
+    """``cuda_ms`` over ``ZOO_WINDOWS`` windows of ``ZOO_TIMED`` calls after
+    ``ZOO_WARMUP``: (median, min, max) of the windows' ms a call."""
+    import numpy as np
+    ms = [cuda_ms(fn, ZOO_TIMED, ZOO_WARMUP if i == 0 else 0)
+          for i in range(ZOO_WINDOWS)]
+    return float(np.median(ms)), float(min(ms)), float(max(ms))
+
+
+def zoo_model_block(name):
+    """The config's ``model`` block for a preset or ``'custom'``: 80
+    classes, COCO anchors, 608x608."""
+    preset = {'architecture': name if name != 'custom' else
+              'multigriddet_darknet', 'num_classes': NUM_CLASSES,
+              'input_shape': [*HW, 3],
+              'anchors_path': os.path.join(REPO, 'configs',
+                                           'yolov3_coco_anchor.txt')}
+    if name == 'custom':
+        return {'type': 'custom', 'preset': preset,
+                'custom': dict(ZOO_CUSTOM)}
+    return {'type': 'preset', 'preset': preset}
+
+
+def zoo_serve(name, dev, batches):
+    """(a) serve two batches through ``MultiGridInference`` with the
+    pop-max kernel; (b) the float32 forward at b1 on the card against the
+    CPU.  Returns the report."""
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.config import build_model_from_config
+    from multigriddet_tpu_torch.inference import MultiGridInference
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.training.steps import (candidate_pool,
+                                                       fetch_detections)
+    cfg = serve_config('pallas_fused')
+    cfg['model'] = zoo_model_block(name)
+    engine = MultiGridInference(cfg, device=dev)    # seeded weights, seed 0
+    params = sum(p.numel() for p in engine.model.parameters())
+    cuda_nms.popmax_nms.launches = 0
+    cuda_nms.greedy_nms.launches = 0
+    outs = [engine.infer_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = {'popmax_nms': cuda_nms.popmax_nms.launches,
+                'greedy_nms': cuda_nms.greedy_nms.launches}
+    if launches != {'popmax_nms': len(batches), 'greedy_nms': 0}:
+        raise AssertionError(f'{name}: kernel launches {launches}, expected '
+                             f'{len(batches)} pop-max, 0 greedy')
+    res = [fetch_detections(o) for o in outs]
+    for bx, cl, sc, va in res:
+        if not ((va.sum(1) >= 1).all() and np.isfinite(bx[va]).all()
+                and ((sc[va] >= 0) & (sc[va] <= 1)).all()
+                and ((cl[va] >= 0) & (cl[va] < NUM_CLASSES)).all()):
+            raise AssertionError(f'{name}: detections out of range')
+    with torch.inference_mode():
+        x = torch.from_numpy(batches[0]).to(dev).float() / 255.0
+        pool = candidate_pool(engine.model, x, engine.spec['anchors'], HW)
+        plain = cuda_nms.popmax_nms_plain(*pool, 0.0, THR, MAX_BOXES, 'diou',
+                                          True)
+    for what, a, b in zip(('boxes', 'classes', 'scores', 'valid'), res[0],
+                          (t.cpu().numpy() for t in plain)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f'{name}: served {what} differ from the '
+                                 f'plain pop-max on the same pool')
+    x_dev = torch.from_numpy(batches[0]).to(dev)
+    step_ms, step_min, step_max = windowed_ms(
+        lambda: engine.infer_batch(x_dev))
+
+    # (b) float32 forward, b1, TF32 off: the card against the CPU
+    model, _ = build_model_from_config(cfg, dtype=torch.float32)
+    model.load_state_dict(engine.model.state_dict())
+    x1 = torch.from_numpy(batches[0][:1]).float() / 255.0
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = [t.numpy() for t in model(x1)]
+            got = [t.cpu().numpy() for t in model.to(dev)(x1.to(dev))]
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    f32_err = max(float(np.abs(r - g).max()) / max(1.0, float(np.abs(r)
+                                                              .max()))
+                  for r, g in zip(ref, got))
+    if not (all(np.isfinite(g).all() and g.shape == r.shape
+                for r, g in zip(ref, got)) and f32_err <= F32_PARITY_RTOL):
+        raise AssertionError(f'{name}: float32 forward card vs CPU '
+                             f'{f32_err:.3e} > {F32_PARITY_RTOL}')
+    del model
+    return {'params': params, 'popmax_launches': launches['popmax_nms'],
+            'serve_step_ms': step_ms,
+            'serve_step_ms_range': [step_min, step_max],
+            'serve_img_per_s': B / (step_ms / 1e3),
+            'valid_per_image': [int(v) for v in res[0][3].sum(1)],
+            'f32_rel_err': f32_err}
+
+
+def zoo_train_step(name, dev, canvases, boxes, remat=False):
+    """(c) the fused train step (Adam, augmentation off) at b8 @608 bf16:
+    one step must give a finite loss and move the running statistics;
+    then its time (``windowed_ms``) and the peak memory."""
+    import math
+    import torch
+    from multigriddet_tpu_torch.config import (build_model_for_training,
+                                               create_optimizer_from_config)
+    from multigriddet_tpu_torch.ops.yuv import rgb_to_yuv420_np
+    from multigriddet_tpu_torch.training import (apply_freeze,
+                                                 create_train_state,
+                                                 make_fused_train_step)
+    cfg = train_config('', schedule={'type': 'constant'})
+    cfg['model'] = zoo_model_block(name)
+    cfg['environment']['remat'] = remat
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, spec, loss_cfg = build_model_for_training(cfg, device=dev,
+                                                     seed=SEED)
+    state = create_train_state(model, create_optimizer_from_config(
+        cfg, apply_freeze(model, 0)))
+    host_step, _ = make_fused_train_step(spec['anchors'], NUM_CLASSES,
+                                         loss_cfg, aug_cfg={'enabled': False})
+    parts = tuple(torch.from_numpy(p).to(dev)
+                  for p in rgb_to_yuv420_np(canvases))
+    gen = torch.Generator().manual_seed(SEED)
+    before = {k: v.clone() for k, v in model.state_dict().items()
+              if k.endswith('running_var')}
+    _, metrics = host_step(state, parts, boxes, gen)
+    loss = float(metrics['loss'])
+    after = model.state_dict()
+    moved = sum(not torch.equal(after[k], v) for k, v in before.items())
+    if not (math.isfinite(loss) and moved == len(before)):
+        raise AssertionError(f'{name}: train step loss {loss!r}, '
+                             f'{moved} of {len(before)} running variances '
+                             f'moved')
+    step_ms, step_min, step_max = windowed_ms(
+        lambda: host_step(state, parts, boxes, gen))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, model, host_step
+    return {'train_loss': loss, 'train_step_ms': step_ms,
+            'train_step_ms_range': [step_min, step_max],
+            'train_img_per_s': B / (step_ms / 1e3), 'train_peak_gib': peak}
+
+
+def zoo_grad64(name, dev):
+    """(d) one train step in float64 at b2 @128 on the card and on the
+    CPU from identical weights, images and targets: every gradient within
+    ``GRAD64_RTOL`` of its tensor's largest |grad| on the CPU."""
+    import copy
+    import torch
+    from multigriddet_tpu_torch.config import (build_model_from_config,
+                                               create_optimizer_from_config,
+                                               loss_config_from_config)
+    from multigriddet_tpu_torch.data.pipeline import _device_stage
+    from multigriddet_tpu_torch.models import (load_flax_variables,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.ops.yuv import rgb_to_yuv420_np
+    from multigriddet_tpu_torch.training import (apply_freeze,
+                                                 create_train_state,
+                                                 make_train_step)
+    cfg = train_config('', ZOO_GRAD_HW, mixed=False,
+                       schedule={'type': 'constant'})
+    cfg['model'] = zoo_model_block(name)
+    model, spec = build_model_from_config(cfg, dtype=torch.float64)
+    load_flax_variables(model, *random_flax_variables(model, seed=SEED))
+    model.double()
+    _, canvases, boxes = train_frames(ZOO_GRAD_B, SEED + 5, ZOO_GRAD_HW)
+    anchors = spec['anchors']
+    images, y_true, _ = _device_stage(
+        tuple(torch.from_numpy(p) for p in rgb_to_yuv420_np(canvases)),
+        boxes, None, {'enabled': False}, anchors, NUM_CLASSES, ZOO_GRAD_HW,
+        True)
+    step = make_train_step(anchors, NUM_CLASSES, ZOO_GRAD_HW,
+                           loss_config_from_config(cfg))
+
+    def grads(d):
+        m = copy.deepcopy(model).to(d).train()
+        state = create_train_state(m, create_optimizer_from_config(
+            cfg, apply_freeze(m, 0)))
+        step(state, images.to(d), [y.to(d) for y in y_true])
+        return {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+    ref, got = grads('cpu'), grads(dev)
+    err = max(float((got[n] - r).abs().max())
+              / max(float(r.abs().max()), 1e-300) for n, r in ref.items())
+    if not err <= GRAD64_RTOL:
+        raise AssertionError(f'{name}: float64 gradients card vs CPU '
+                             f'{err:.3e} > {GRAD64_RTOL}')
+    return {'grad64_rel_err': err, 'grad_tensors': len(ref)}
+
+
+def remat_checks(dev, canvases, boxes):
+    """``environment.remat`` on ``multigriddet_darknet``: (1) float32 at
+    b2 @416 with deterministic cuDNN, one SGD step of ``True`` and of
+    ``'full'`` against the plain step from the same weights and batch --
+    loss, gradients, parameters and running statistics; (2) the fused
+    step's time and peak memory at b8 @608 bf16 for plain, ``True`` and
+    ``'full'``."""
+    import copy
+    import torch
+    from multigriddet_tpu_torch.config import (build_model_from_config,
+                                               create_optimizer_from_config,
+                                               loss_config_from_config)
+    from multigriddet_tpu_torch.data.pipeline import _device_stage
+    from multigriddet_tpu_torch.models import (load_flax_variables,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.models.detector import remat_mode
+    from multigriddet_tpu_torch.ops.yuv import rgb_to_yuv420_np
+    from multigriddet_tpu_torch.training import (apply_freeze,
+                                                 create_train_state,
+                                                 make_train_step)
+    cfg = train_config('', REMAT_HW, mixed=False, lr=REMAT_LR,
+                       schedule={'type': 'constant'})
+    cfg['optimizer'] = {'type': 'sgd', 'momentum': 0.0}
+    model, spec = build_model_from_config(cfg)
+    load_flax_variables(model, *random_flax_variables(model, seed=SEED))
+    _, frames, fboxes = train_frames(REMAT_B, SEED + 9, REMAT_HW)
+    anchors = spec['anchors']
+    images, y_true, _ = _device_stage(
+        tuple(torch.from_numpy(p).to(dev)
+              for p in rgb_to_yuv420_np(frames)), fboxes, None,
+        {'enabled': False}, anchors, NUM_CLASSES, REMAT_HW, True)
+    step = make_train_step(anchors, NUM_CLASSES, REMAT_HW,
+                           loss_config_from_config(cfg))
+
+    def one_step(remat):
+        m = copy.deepcopy(model).to(dev).train()
+        m.remat = remat_mode(remat)
+        state = create_train_state(m, create_optimizer_from_config(
+            cfg, apply_freeze(m, 0)))
+        _, metrics = step(state, images, y_true)
+        return (float(metrics['loss']),
+                {n: p.grad.detach().clone() for n, p in m.named_parameters()},
+                {k: v.detach().clone() for k, v in m.state_dict().items()})
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        plain = one_step(False)
+        equal = {}
+        for remat in (True, 'full'):
+            loss, grads, sd = one_step(remat)
+            stat = max(float(((sd[k] - v).abs() / v.abs().clamp_min(1.0))
+                             .max()) for k, v in plain[2].items()
+                       if 'running' in k)
+            param = max(float((sd[k] - v).abs().max())
+                        for k, v in plain[2].items() if 'running' not in k)
+            grad = max(float((grads[n] - g).abs().max())
+                       / max(float(g.abs().max()), 1e-30)
+                       for n, g in plain[1].items())
+            equal[str(remat)] = {
+                'loss_rel': abs(loss - plain[0]) / max(1.0, abs(plain[0])),
+                'stat_rel': stat, 'grad_rel': grad, 'param_abs': param}
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32) = flags
+    for remat, e in equal.items():
+        if not (e['loss_rel'] <= REMAT_LOSS_RTOL
+                and e['stat_rel'] <= REMAT_STAT_RTOL
+                and e['grad_rel'] <= REMAT_GRAD_RTOL
+                and e['param_abs'] <= REMAT_PARAM_ATOL):
+            raise AssertionError(f'remat {remat}: the step differs from the '
+                                 f'plain step: {e}')
+    del model
+    times = {str(remat): zoo_train_step('multigriddet_darknet', dev,
+                                        canvases, boxes, remat=remat)
+             for remat in (False, True, 'full')}
+    return {'equal': equal, 'times': times}
+
+
+def phase_zoo(dev, smi):
+    """Phase 9: each preset of the rest of the zoo and one custom
+    composition -- (a) served with the pop-max kernel and bit-equal to
+    the plain pop-max, (b) the float32 forward against the CPU, (c) a
+    timed fused train step, (d) float64 gradients against the CPU -- then
+    ``environment.remat`` on ``multigriddet_darknet``."""
+    import torch
+
+    def rng(lo_hi):
+        return f'(windows {lo_hi[0]:.1f}-{lo_hi[1]:.1f})'
+    t0 = time.perf_counter()
+    batches = letterboxed_batches(ZOO_SERVE_BATCHES, SEED + 3)
+    _, canvases, boxes = train_frames(B, SEED + 13)
+    report = {}
+    for name in ZOO_PRESETS + ('custom',):
+        t1 = time.perf_counter()
+        r = zoo_serve(name, dev, batches)
+        r.update(zoo_train_step(name, dev, canvases, boxes))
+        r.update(zoo_grad64(name, dev))
+        r['seconds'] = time.perf_counter() - t1
+        report[name] = r
+        torch.cuda.empty_cache()
+        log(f'[zoo] {name} ({r["params"] / 1e6:.2f}M params): serve b{B} '
+            f'@{HW[0]} bf16 {r["serve_step_ms"]:.3f} ms '
+            f'{rng(r["serve_step_ms_range"])} '
+            f'({r["serve_img_per_s"]:.1f} img/s), {r["popmax_launches"]} '
+            f'pop-max launches, equal to the plain pop-max; f32 forward '
+            f'card vs CPU {r["f32_rel_err"]:.3e}; train step '
+            f'{r["train_step_ms"]:.3f} ms {rng(r["train_step_ms_range"])} '
+            f'({r["train_img_per_s"]:.1f} img/s), peak {r["train_peak_gib"]:.2f} GiB, loss '
+            f'{r["train_loss"]:.3f}; float64 gradients @{ZOO_GRAD_HW[0]} '
+            f'{r["grad64_rel_err"]:.3e}; {r["seconds"]:.1f} s')
+    remat = remat_checks(dev, canvases, boxes)
+    for mode, e in remat['equal'].items():
+        log(f'[zoo] remat {mode} vs plain, f32 b{REMAT_B} @{REMAT_HW[0]}, '
+            f'one SGD step: loss {e["loss_rel"]:.3e}, statistics '
+            f'{e["stat_rel"]:.3e}, gradients {e["grad_rel"]:.3e}, '
+            f'parameters {e["param_abs"]:.3e}')
+    for mode, t in remat['times'].items():
+        log(f'[zoo] remat {mode}: multigriddet_darknet train step b{B} '
+            f'@{HW[0]} bf16 {t["train_step_ms"]:.3f} ms '
+            f'{rng(t["train_step_ms_range"])} ({t["train_img_per_s"]:.1f} '
+            f'img/s), peak {t["train_peak_gib"]:.2f} GiB')
+    report['remat'] = remat
+    report['popmax_launches'] = sum(r['popmax_launches'] for k, r in
+                                    report.items()
+                                    if k in ZOO_PRESETS + ('custom',))
+    report['seconds'] = time.perf_counter() - t0
+    log(f'[zoo] phase took {report["seconds"]:.1f} s; card: {smi}')
+    return report
+
+
+_STEP_TIMES_CHILD = """
+import importlib.util, json, sys
+sys.path.insert(0, {tree!r})
+spec = importlib.util.spec_from_file_location('chip_smoke', {script!r})
+c = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(c)
+print('STEPS ' + json.dumps(c.step_times()), flush=True)
+"""
+
+
+def step_times():
+    """The serve step (phase 5's fused step on a resident batch, 20 calls
+    after 3) and the fused train step (augmentation off, as phase 9 times
+    it) of ``multigriddet_darknet`` at b8 @608 bf16, for the port that
+    ``import multigriddet_tpu_torch`` finds."""
+    import torch
+    import multigriddet_tpu_torch
+    phase_build()
+    dev = torch.device('cuda')
+    engine = build_engine('pallas_fused')
+    x = torch.from_numpy(letterboxed_batches(1, SEED)[0]).to(dev)
+    serve_ms = cuda_ms(lambda: engine.infer_batch(x), 20, 3)
+    del engine
+    _, canvases, boxes = train_frames(B, SEED + 13)
+    train = zoo_train_step('multigriddet_darknet', dev, canvases, boxes)
+    return {'package': os.path.dirname(multigriddet_tpu_torch.__file__),
+            'serve_step_ms': serve_ms, 'train_step_ms': train['train_step_ms'],
+            'train_peak_gib': train['train_peak_gib']}
+
+
+def compare_step_times(trees):
+    """``step_times`` of the port in each checkout of ``trees``, one fresh
+    process each, in the order given (e.g. parent, change, change,
+    parent): one line ``{"tree": ..., ...}`` each."""
+    out = []
+    for tree in trees:
+        code = _STEP_TIMES_CHILD.format(tree=os.path.abspath(tree),
+                                        script=os.path.abspath(__file__))
+        proc = subprocess.run([sys.executable, '-c', code], text=True,
+                              capture_output=True, check=True)
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith('STEPS ')][-1]
+        out.append({'tree': tree, **json.loads(line[len('STEPS '):])})
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--report', default=None,
                    help='also write every measured number to this JSON file')
+    p.add_argument('--step-times', nargs='+', metavar='CHECKOUT',
+                   help='only time the darknet serve and train steps of the '
+                        'port in each checkout, in turn (e.g. parent, change, '
+                        'change, parent), and exit')
     args = p.parse_args(argv)
 
     import torch
@@ -1752,6 +2176,9 @@ def main(argv=None) -> int:
 
     smi = smi_line()
     log(f'[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}')
+    if args.step_times:
+        compare_step_times(args.step_times)
+        return 0
     t_start = time.perf_counter()
     build = phase_build()
     errs = phase_kernels(torch.device('cuda'))
@@ -1766,14 +2193,18 @@ def main(argv=None) -> int:
     train = phase_train(torch.device('cuda'), smi)
     log(f'[train] phase took {train["seconds"]:.1f} s')
     overfit = phase_overfit_map(torch.device('cuda'), smi)
+    zoo = phase_zoo(torch.device('cuda'), smi)
 
     src = 'multigriddet_tpu_torch/csrc/nms.cu'
     replaces = {'popmax_nms': 'multigriddet_tpu/ops/pallas_nms.py:115',
                 'greedy_nms': 'multigriddet_tpu/ops/pallas_nms.py:34'}
     path_of = {'popmax_nms': 'pallas_fused', 'greedy_nms': 'pallas'}
+    # the serve run's launches, and the zoo's (one pop-max a served batch)
+    zoo_launches = {'popmax_nms': zoo['popmax_launches'], 'greedy_nms': 0}
     kernels = [{'name': k['name'], 'route': 'cuda', 'source': src,
                 'replaces': replaces[k['name']],
-                'launches': launches[path_of[k['name']]][k['name']],
+                'launches': (launches[path_of[k['name']]][k['name']]
+                             + zoo_launches[k['name']]),
                 'max_abs_err': errs[k['name']], 'ms': k['ms'],
                 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
                 'bound_by': k['bound_by'], 'library_ms': None}
@@ -1788,7 +2219,7 @@ def main(argv=None) -> int:
                        'serve': times, 'launches': launches,
                        'f32_parity_rel_err': f32_err, 'kernels': kernels,
                        'evaluate': evaluate, 'train': train,
-                       'overfit_map': overfit,
+                       'overfit_map': overfit, 'zoo': zoo,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},
                        'kernel_call_ms': {k['name']: k['call_ms']

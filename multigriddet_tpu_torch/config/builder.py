@@ -24,7 +24,7 @@ import torch
 
 from ..device import resolve_device
 from ..losses import LossConfig
-from ..models import (create_model, load_flax_variables,
+from ..models import (build_custom, create_model, load_flax_variables,
                       load_weights_flexible, random_flax_variables)
 from ..utils.anchors import (class_counts_from_annotations,
                              compute_class_weights, load_anchors,
@@ -84,18 +84,34 @@ def build_model_from_config(config: Dict[str, Any],
                             dtype: torch.dtype = torch.float32):
     """Instantiate the detector (eval mode, on the CPU) and its spec.
 
-    ``model.s2d_stem`` needs nothing here: it selects a TPU execution
-    rewrite of the same function and parameters in the JAX package.
+    ``model.type: custom`` composes ``model.custom.{backbone,neck,head}``
+    by their ``type`` (the neck's other keys are its keyword arguments,
+    ``channels`` as a tuple), as the JAX builder does; it reads neither
+    ``bn_momentum`` nor ``environment.remat``.  A preset reads both
+    (``remat``: false, true / ``'conv'`` or ``'full'``).
+    ``model.s2d_stem`` is not read: it selects a TPU execution rewrite of
+    the same function and parameters in the JAX package.
     """
     spec = model_spec_from_config(config)
+    num_anchors = tuple(len(a) for a in spec['anchors'])
     if spec['mode'] == 'custom' and spec['custom']:
-        raise NotImplementedError(
-            'custom registry composition is not ported yet (ROADMAP '
-            'Queue 1 item 12)')
-    model = create_model(spec['architecture'],
-                         num_anchors=tuple(len(a) for a in spec['anchors']),
-                         num_classes=spec['num_classes'], dtype=dtype,
-                         bn_momentum=bn_momentum_from_config(config))
+        custom = spec['custom']
+        neck_cfg = dict(custom.get('neck', {}) or {})
+        neck_type = neck_cfg.pop('type', None)
+        if 'channels' in neck_cfg:
+            neck_cfg['channels'] = tuple(neck_cfg['channels'])
+        model = build_custom(
+            (custom.get('backbone', {}) or {}).get('type', 'darknet53'),
+            (custom.get('head', {}) or {}).get('type', 'multigrid'),
+            neck_name=neck_type, neck_kwargs=neck_cfg,
+            num_anchors=num_anchors, num_classes=spec['num_classes'],
+            dtype=dtype)
+    else:
+        model = create_model(
+            spec['architecture'], num_anchors=num_anchors,
+            num_classes=spec['num_classes'], dtype=dtype,
+            bn_momentum=bn_momentum_from_config(config),
+            remat=(config.get('environment', {}) or {}).get('remat', False))
     return model, spec
 
 
@@ -162,10 +178,6 @@ def build_model_for_training(config: Dict[str, Any],
     Returns ``(model, spec, loss_cfg)``.
     """
     from ..training.checkpoint import load_backbone_flexible
-    if (config.get('environment', {}) or {}).get('remat'):
-        raise NotImplementedError(
-            'environment.remat (activation checkpointing) is not ported '
-            'yet (ROADMAP Queue 1 item 16)')
     dev = resolve_device(device)
     model, spec = build_model_from_config(config,
                                           dtype=resolve_compute_dtype(config))

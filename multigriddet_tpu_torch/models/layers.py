@@ -1,8 +1,10 @@
 """Layer primitives of the model zoo (PyTorch, NCHW inside).
 
 Counterpart of ``multigriddet_tpu/models/layers.py``: the no-bias conv +
-BatchNorm + LeakyReLU(0.1) block with Darknet's top/left padding for
-stride-2 convs, and the biased 1x1 predict conv that emits float32.
+BatchNorm + activation block with Darknet's top/left padding for stride-2
+convs (``act``: the JAX ``_ACTS`` table, leaky by default), its
+depthwise-separable variant, the SPP pooling stage, and the biased 1x1
+predict conv that emits float32.
 
 Submodules carry the flax auto-names (``Conv_0``, ``BatchNorm_0``) so the
 ``state_dict`` keys follow the flax parameter paths one to one
@@ -19,22 +21,102 @@ default).  ``torch.nn.functional.batch_norm`` would store the unbiased
 variance, so the module keeps ``nn.BatchNorm2d`` only as the holder of its
 parameters and buffers.  A block's mode is its ``training`` flag unless the
 caller passes ``train`` (the flax ``train`` argument).
+
+Activation checkpointing (``environment.remat``, ``models/detector.py``)
+needs two hooks from here.  :func:`no_stat_updates` stops ``batch_norm``
+from moving the running statistics while a checkpointed forward is
+recomputed in the backward, so the momentum is applied once, as the JAX
+model's functional update does.  Under :func:`selective_remat` (the
+selective mode, set around the backbone) :func:`norm_act`, the BatchNorm
++ activation after each conv, runs inside a ``torch.utils.checkpoint``:
+the conv's output is kept and the BatchNorm and the activation are
+recomputed in the backward (JAX ``layers.py:144-147`` and its
+``save_only_these_names('conv_out')`` policy).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99     # flax convention: the weight of the old value
 
+# thread-local: the autograd engine recomputes a checkpointed forward on
+# its own thread for CUDA tensors, and the flags are set on that thread
+_LOCAL = threading.local()
+
+
+@contextlib.contextmanager
+def _flag(name: str):
+    before = getattr(_LOCAL, name, False)
+    setattr(_LOCAL, name, True)
+    try:
+        yield
+    finally:
+        setattr(_LOCAL, name, before)
+
+
+def no_stat_updates():
+    """Train-mode ``batch_norm`` normalizes with the batch's statistics but
+    leaves the running statistics as they are (the recompute of a
+    checkpointed forward)."""
+    return _flag('frozen_stats')
+
+
+def selective_remat():
+    """``norm_act`` checkpoints its BatchNorm + activation (see the module
+    docstring)."""
+    return _flag('selective')
+
+
+def recompute_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint``: the forward runs as
+    it is; its recompute in the backward moves no running statistic."""
+    return contextlib.nullcontext(), no_stat_updates()
+
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.1)
+
+
+def mish(x: torch.Tensor) -> torch.Tensor:
+    """``x * tanh(softplus(x))``.  JAX's softplus is ``logaddexp(x, 0)``;
+    ``F.softplus`` returns ``x`` itself above 20, which differs from it by
+    ``log1p(exp(-x)) < 2.1e-9``: at most ~2e-9 of the output there, far
+    below the logit tolerance, and below float32's resolution of ``x``."""
+    return x * torch.tanh(F.softplus(x))
+
+
+def linear(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    'leaky': leaky_relu,
+    'mish': mish,
+    'relu': F.relu,
+    'linear': linear,
+}
+
+
+def auto_name(parent: nn.Module, child: nn.Module) -> str:
+    """Register ``child`` under its flax auto-name ``{kind}_{n}``, where
+    ``kind`` is its class name and ``n`` counts the children of that kind
+    that ``parent`` already holds (flax numbers submodules per class in
+    construction order).  Returns the name."""
+    kind = type(child).__name__
+    n = sum(name.rsplit('_', 1)[0] == kind
+            for name, _ in parent.named_children())
+    name = f'{kind}_{n}'
+    parent.add_module(name, child)
+    return name
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -52,11 +134,12 @@ def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d, train: bool,
         mean = yf.mean((0, 2, 3))
         mean2 = yf.square().mean((0, 2, 3))
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
-        with torch.no_grad():
-            bn.running_mean.copy_(momentum * bn.running_mean
-                                  + (1 - momentum) * mean)
-            bn.running_var.copy_(momentum * bn.running_var
-                                 + (1 - momentum) * var)
+        if not getattr(_LOCAL, 'frozen_stats', False):
+            with torch.no_grad():
+                bn.running_mean.copy_(momentum * bn.running_mean
+                                      + (1 - momentum) * mean)
+                bn.running_var.copy_(momentum * bn.running_var
+                                     + (1 - momentum) * var)
     else:
         mean, var = bn.running_mean, bn.running_var
     # flax order: (x - mean) * (rsqrt(var + eps) * scale) + bias
@@ -65,8 +148,28 @@ def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d, train: bool,
             + bn.bias[:, None, None])
 
 
+def _norm_act(y: torch.Tensor, bn: nn.BatchNorm2d, train: bool,
+              momentum: float, act: Callable, dtype: torch.dtype
+              ) -> torch.Tensor:
+    return act(batch_norm(y, bn, train, momentum).to(dtype))
+
+
+def norm_act(y: torch.Tensor, bn: nn.BatchNorm2d, train: bool,
+             momentum: float, act: Callable, dtype: torch.dtype
+             ) -> torch.Tensor:
+    """``act(batch_norm(y))`` in ``dtype``; under :func:`selective_remat`
+    with gradients on, checkpointed, so only ``y`` is kept for the
+    backward."""
+    if getattr(_LOCAL, 'selective', False) and torch.is_grad_enabled():
+        return checkpoint(_norm_act, y, bn, train, momentum, act, dtype,
+                          use_reentrant=False,
+                          context_fn=recompute_contexts)
+    return _norm_act(y, bn, train, momentum, act, dtype)
+
+
 class ConvBN(nn.Module):
-    """Conv2D (no bias) + BatchNorm + LeakyReLU(0.1).
+    """Conv2D (no bias) + BatchNorm + activation (``act``, one of
+    :data:`ACTS`; LeakyReLU(0.1) by default).
 
     Stride-2 convs pad top/left by one and run VALID; stride-1 convs pad
     SAME (``multigriddet_tpu/models/layers.py:137-141``).
@@ -74,10 +177,11 @@ class ConvBN(nn.Module):
 
     def __init__(self, in_channels: int, filters: int, kernel: int = 3,
                  strides: int = 1, dtype: torch.dtype = torch.float32,
-                 bn_momentum: float = BN_MOMENTUM):
+                 bn_momentum: float = BN_MOMENTUM, act: str = 'leaky'):
         super().__init__()
         self.kernel, self.strides, self.dtype = kernel, strides, dtype
         self.bn_momentum = bn_momentum
+        self.act = ACTS[act]
         self.Conv_0 = nn.Conv2d(in_channels, filters, kernel, strides,
                                 padding=0, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(filters, eps=BN_EPSILON,
@@ -93,8 +197,56 @@ class ConvBN(nn.Module):
             x = F.pad(x, (p, p, p, p))
         y = F.conv2d(x.to(self.dtype), self.Conv_0.weight.to(self.dtype),
                      stride=self.strides)
-        y = batch_norm(y, self.BatchNorm_0, train, self.bn_momentum)
-        return leaky_relu(y.to(self.dtype))
+        return norm_act(y, self.BatchNorm_0, train, self.bn_momentum,
+                        self.act, self.dtype)
+
+
+class SeparableConvBN(nn.Module):
+    """Depthwise-separable ConvBN (JAX ``layers.py:202-237``): a depthwise
+    ``kernel`` conv (``groups=in_channels``), BatchNorm, the activation, a
+    pointwise 1x1 conv, BatchNorm, the activation.  Both BatchNorms use
+    eps 1e-3; stride 2 pads top/left and runs VALID, as ``ConvBN``."""
+
+    def __init__(self, in_channels: int, filters: int, kernel: int = 3,
+                 strides: int = 1, dtype: torch.dtype = torch.float32,
+                 bn_momentum: float = BN_MOMENTUM, act: str = 'leaky'):
+        super().__init__()
+        self.kernel, self.strides, self.dtype = kernel, strides, dtype
+        self.bn_momentum = bn_momentum
+        self.act = ACTS[act]
+        self.Conv_0 = nn.Conv2d(in_channels, in_channels, kernel, strides,
+                                groups=in_channels, bias=False)
+        self.BatchNorm_0 = nn.BatchNorm2d(in_channels, eps=BN_EPSILON)
+        self.Conv_1 = nn.Conv2d(in_channels, filters, 1, bias=False)
+        self.BatchNorm_1 = nn.BatchNorm2d(filters, eps=BN_EPSILON)
+
+    def forward(self, x: torch.Tensor,
+                train: Optional[bool] = None) -> torch.Tensor:
+        train = self.training if train is None else train
+        if self.strides == 2:
+            x = F.pad(x, (1, 0, 1, 0))
+        else:
+            p = self.kernel // 2
+            x = F.pad(x, (p, p, p, p))
+        w = self.Conv_0.weight.to(self.dtype)
+        y = F.conv2d(x.to(self.dtype), w, stride=self.strides,
+                     groups=w.shape[0])
+        y = norm_act(y, self.BatchNorm_0, train, self.bn_momentum, self.act,
+                     self.dtype)
+        y = F.conv2d(y, self.Conv_1.weight.to(self.dtype))
+        return norm_act(y, self.BatchNorm_1, train, self.bn_momentum,
+                        self.act, self.dtype)
+
+
+def spp(x: torch.Tensor, pool_sizes: Sequence[int] = (5, 9, 13)
+        ) -> torch.Tensor:
+    """Spatial pyramid pooling of an NCHW tensor: stride-1 max-pools with
+    SAME padding (max-pooling pads with -inf), concatenated as
+    ``pools[::-1] + [x]`` -- 13, 9, 5, then the identity (JAX
+    ``layers.py:240-252``)."""
+    pools = [F.max_pool2d(x, k, stride=1, padding=k // 2)
+             for k in pool_sizes]
+    return torch.cat(pools[::-1] + [x], dim=1)
 
 
 class PredictConv(nn.Module):

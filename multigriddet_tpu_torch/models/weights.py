@@ -15,6 +15,13 @@ batch_stats ``mean``   ``running_mean``           as is
 batch_stats ``var``    ``running_var``            as is
 =====================  =========================  ===================
 
+The rule covers every module of the zoo without a case of its own:
+a depthwise kernel, HWIO ``(k, k, 1, C)``, becomes OIHW ``(C, 1, k, k)``,
+the layout of a ``groups=C`` conv; ``SeparableConvBN``'s ``Conv_1`` and
+``BatchNorm_1``, ResNet's ``_RNConvBN_*`` and ``_Bottleneck_*``, the
+neck's and PANet's modules are paths like any other, since each module
+carries its flax auto-name.
+
 ``state_dict_to_flax`` is the inverse (OIHW -> HWIO, ``running_*`` ->
 ``mean``/``var``), for the trainer's exports.
 

@@ -19,9 +19,9 @@ Counterpart of ``multigriddet_tpu/training/trainer.py``:
 Each batch goes through the fused train step (the generator's raw u8 batch
 -> device stage -> train step) unless ``training.fused_input_stage`` is
 false.  The port trains on one device: data parallel, spatial partitioning
-and multi-process runs wait for ROADMAP Queue 1 item 13, activation
-checkpointing for item 16; asking for any of them raises
-``NotImplementedError``.  With ``data_loader.cache_images_device`` the
+and multi-process runs wait for ROADMAP Queue 1 item 13; asking for any of
+them raises ``NotImplementedError``.  ``environment.remat`` checkpoints the
+backbone's activations (``models/detector.py``).  With ``data_loader.cache_images_device`` the
 decoded images stay in a device bank (one byte budget,
 ``device_cache_budget_gb``, for the train and validation banks together),
 and epoch 2 on trains from it.
@@ -48,8 +48,7 @@ from .steps import make_eval_step, make_fused_train_step, make_train_step
 
 
 def refuse_unported(config: Dict[str, Any]):
-    """Raise for settings the port does not run yet (never ignore them;
-    ``environment.remat`` raises where the model is built)."""
+    """Raise for settings the port does not run yet (never ignore them)."""
     env = config.get('environment', {}) or {}
     if int(env.get('spatial_partition', 1) or 1) > 1:
         raise NotImplementedError(

@@ -21,6 +21,7 @@ from multigriddet_tpu.data.pipeline import \
 from multigriddet_tpu_torch.data import MultiGridDataGenerator
 from multigriddet_tpu_torch.data.augment import (expand_box_capacity,
                                                  normalize_images)
+from test_torch_native_oracle import jax_native_oracle  # noqa: F401
 
 ANCHORS = [np.array([[40, 40], [30, 50], [50, 30]], np.float32),
            np.array([[20, 20], [14, 28], [28, 14]], np.float32),

@@ -34,6 +34,7 @@ from multigriddet_tpu_torch.models import (create_model, flax_to_state_dict,
 from multigriddet_tpu_torch.training import (CheckpointManager,
                                              MultiGridTrainer, load_params,
                                              save_params)
+from test_torch_native_oracle import jax_native_oracle  # noqa: F401
 
 HW = (64, 64)
 
@@ -221,7 +222,9 @@ def test_reduce_on_plateau_and_early_stopping(dataset, tmp_path, monkeypatch):
                  id='change1-item 10'),
     pytest.param({'data_loader': {'cache_images_device': True}}, None,
                  id='change2-item 10'),
-    ({'environment': {'remat': True}}, 'item 16'),
+    # ported since (activation checkpointing): this trains
+    pytest.param({'environment': {'remat': True}}, None,
+                 id='change3-item 16'),
     ({'environment': {'spatial_partition': 2}}, 'item 13'),
     ({'environment': {'distributed': {'num_processes': 2}}}, 'item 13')])
 def test_unported_options_raise_before_any_step(dataset, tmp_path, change,

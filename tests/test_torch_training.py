@@ -57,6 +57,7 @@ from multigriddet_tpu_torch.training import (apply_freeze,
                                              make_eval_step,
                                              make_fused_train_step,
                                              make_train_step)
+from test_torch_native_oracle import jax_native_oracle  # noqa: F401
 
 HW = (64, 64)
 NC = 3
@@ -413,7 +414,8 @@ def test_optimizer_settings_follow_the_jax_builder():
 
 def test_flax_like_init_and_builder_settings(tmp_path):
     """Seeded flax-like init (LeCun-normal kernels, BN identity),
-    ``bn_momentum`` from the config, and the unported options raising."""
+    ``bn_momentum`` from the config, and ``environment.remat`` read into
+    the model."""
     anchors = tmp_path / 'a.txt'
     anchors.write_text('40,40 30,50 50,30\n20,20 14,28 28,14\n'
                        '10,10 7,14 14,7\n')
@@ -438,9 +440,11 @@ def test_flax_like_init_and_builder_settings(tmp_path):
     assert model.backbone.ConvBN_0.bn_momentum == 0.9
     jcfg = jbuilder.loss_config_from_config(config)
     assert loss_cfg.__dict__ == jcfg.__dict__
-    config['environment'] = {'remat': True}
-    with pytest.raises(NotImplementedError, match='item 16'):
-        builder.build_model_for_training(config, device='cpu')
+    # environment.remat (item 16) is ported: the backbone is checkpointed
+    for remat, mode in ((True, 'conv'), ('conv', 'conv'), ('full', 'full')):
+        config['environment'] = {'remat': remat}
+        model, _, _ = builder.build_model_for_training(config, device='cpu')
+        assert model.remat == mode
 
 
 def test_class_weights_and_counts_match_jax():
