@@ -99,6 +99,33 @@
    step), and the step's time and peak memory at b8 @608 bf16 for plain,
    ``True`` and ``'full'``.
 
+10. Export: ``export_serving`` of ``multigriddet_darknet`` at 608 bf16 on
+    the card (``xla`` NMS, programs for b1 and b8; export seconds and MB),
+    ``ServingModel`` serving four batches of 8, one of 3 (padded), one of
+    11 (chunked) and one image, each against the live step with
+    ``cudnn.benchmark`` off (classes and valid masks equal, boxes and
+    scores within 2e-5), the served b8 step (under ``inference_mode``, as
+    ``ServingModel`` runs it, and under ``no_grad``) beside the live
+    ``xla`` step, both profiled with the host ops the served one adds,
+    and a ``multigriddet_tiny`` artifact traced on the CPU served on the
+    card against the live step there.
+11. Data parallel: (a) two ranks on the one card, gloo on CUDA tensors,
+    ``multigriddet_darknet`` at 416 (TF32 off), global b4, two SGD steps,
+    against one process on the concatenated batch: the float32 first
+    step's loss terms within ``DP_RTOL``, and in float64 the steps' loss
+    terms, running statistics and parameters within ``DP_RTOL64``; one
+    process in float32 against one in float64 on the same steps, printed
+    (float32's own rounding after an update at this init); the same two
+    ranks on ``DP_TINY`` (``multigriddet_tiny`` @64, same LR) in float32,
+    loss terms, statistics and parameters after the steps within
+    ``DP_RTOL``; a rank's float32 step and its gradient all-reduce timed;
+    (b) one NCCL process at world size 1, switched on by
+    ``environment.distributed`` and named by torchrun's variables, one
+    step; (c) ``MultiGridTrainer.train()`` on two gloo ranks for one epoch
+    (8 frames, global b4): equal losses, one ``history.jsonl`` line and
+    ``final_model.msgpack`` written by rank 0 alone.  The ranks are this
+    script run with ``--dp-child``.
+
 ``--step-times CHECKOUT ...`` only times the darknet serve and train
 steps of the port in each checkout given, one process each, and exits:
 the way to compare two commits on one card (parent, change, change,
@@ -1420,24 +1447,27 @@ def count_ops(fn):
     return count[0]
 
 
-def profile_calls(fn, calls):
-    """``calls`` calls of ``fn`` under ``torch.profiler``: CUDA kernels a
-    call, device ms a call by kernel group (``profile_serve``'s groups),
-    and the device's busy share of the wall time.  None where the profiler
+def profile_calls(fn, calls, name='window'):
+    """``calls`` calls of ``fn`` under ``torch.profiler`` (``utils.profiling
+    .trace``, its Chrome trace written to ``build/traces/<name>``): CUDA
+    kernels a call, device ms a call by kernel group (``profile_serve``'s
+    groups), the device's busy share of the wall time, and the host side:
+    top-level host ops a call, the host ms inside them, and the costliest
+    of them by name (count and ms a call).  None where the profiler
     records no kernel (on the CPU, or if its tracing is unavailable)."""
     from collections import defaultdict
     import torch
     from multigriddet_tpu_torch.profile_serve import _group, _union_us
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    from multigriddet_tpu_torch.utils.profiling import trace
+    with trace(os.path.join(REPO, 'build', 'traces', name)) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
+    events = prof.events()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         return None
@@ -1447,12 +1477,26 @@ def profile_calls(fn, calls):
         by_name[e.name[:60]] += e.time_range.end - e.time_range.start
     busy = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    host = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.cpu_parent is None]
+    host_us, host_n = defaultdict(float), defaultdict(int)
+    for e in host:
+        host_us[e.name[:60]] += e.time_range.end - e.time_range.start
+        host_n[e.name[:60]] += 1
+    host_top = sorted(host_us, key=lambda k: -host_us[k])[:8]
     return {'kernels': len(kernels) / calls,
             'group_ms': {k: v / calls / 1e3
                          for k, v in sorted(by_group.items())},
             'top_ms': {k: round(v / calls / 1e3, 3) for k, v in top},
             'device_busy_share': busy / wall_us,
-            'wall_ms': wall_us / calls / 1e3}
+            'wall_ms': wall_us / calls / 1e3,
+            'host_ops': len(host) / calls,
+            'host_op_ms': sum(host_us.values()) / calls / 1e3,
+            'host_top': {k: [host_n[k] / calls,
+                             round(host_us[k] / calls / 1e3, 3)]
+                         for k in host_top},
+            'host_counts': {k: n / calls for k, n in host_n.items()}}
 
 
 def overfit_and_times(dev, root, canvases, boxes):
@@ -1528,9 +1572,10 @@ def overfit_and_times(dev, root, canvases, boxes):
     times['aug_apply_ms'] = cuda_ms(lambda: apply_chain(
         images_f32, boxes_dev, draws, TRAIN_AUG), TIMED_STEPS, WARMUP_STEPS)
     times['stage_aug_profile'] = profile_calls(lambda: _device_stage(
-        parts, boxes, gen, TRAIN_AUG, anchors, NUM_CLASSES, HW, True), 3)
+        parts, boxes, gen, TRAIN_AUG, anchors, NUM_CLASSES, HW, True), 3,
+        'stage_aug')
     times['aug_apply_profile'] = profile_calls(lambda: apply_chain(
-        images_f32, boxes_dev, draws, TRAIN_AUG), 3)
+        images_f32, boxes_dev, draws, TRAIN_AUG), 3, 'aug_apply')
     # the encoder at mosaic's box counts: mosaic on every image
     mosaic_boxes = _device_stage(
         parts, boxes, torch.Generator().manual_seed(SEED),
@@ -1570,7 +1615,7 @@ def overfit_and_times(dev, root, canvases, boxes):
         boxes, anchors, NUM_CLASSES, HW, device=dev))
     y_true = encode_targets(boxes, anchors, NUM_CLASSES, HW, device=dev)
     prof = profile_calls(lambda: encode_targets(
-        boxes, anchors, NUM_CLASSES, HW, device=dev), 1)
+        boxes, anchors, NUM_CLASSES, HW, device=dev), 1, 'encode')
     times['encode_cuda_kernels'] = prof and prof['kernels']
     times['max_valid_boxes'] = int(((boxes[..., 2] - boxes[..., 0])
                                     * (boxes[..., 3] - boxes[..., 1])
@@ -1610,7 +1655,7 @@ def overfit_and_times(dev, root, canvases, boxes):
         f'{times["optimizer_ms"]:.3f} ms')
     # where the step's device time goes, and how busy the device is
     times['profile'] = profile_calls(
-        lambda: host_step(state, parts, boxes, gen), 5)
+        lambda: host_step(state, parts, boxes, gen), 5, 'train_step')
     if times['profile']:
         prof = times['profile']
         log(f'[train] profiled fused step: {prof["wall_ms"]:.1f} ms wall, '
@@ -2110,6 +2155,520 @@ def phase_zoo(dev, smi):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 10: serving export
+# ---------------------------------------------------------------------------
+
+EXPORT_BATCHES = (1, 8)
+# an exported program against the live step on the same card: the same
+# ops on the same inputs; discrete outputs equal, boxes and scores within
+# the JAX export test's 2e-5
+EXPORT_ATOL = 2e-5
+EXPORT_TINY_HW = (64, 64)
+
+
+def compare_served(got, want, label):
+    """Discrete outputs equal, boxes and scores within ``EXPORT_ATOL``;
+    returns the largest float difference."""
+    import numpy as np
+    (gb, gc, gs, gv), (wb, wc, ws, wv) = got, want
+    if not (np.array_equal(gv, wv) and np.array_equal(gc, wc)):
+        raise AssertionError(f'{label}: classes or valid masks differ from '
+                             f'the live step')
+    err = max(float(np.abs(gb - wb).max()), float(np.abs(gs - ws).max()))
+    if not err <= EXPORT_ATOL:
+        raise AssertionError(f'{label}: boxes or scores {err:.3e} from the '
+                             f'live step > {EXPORT_ATOL}')
+    return err
+
+
+def phase_export(dev, smi):
+    """Phase 10: ``export_serving`` of ``multigriddet_darknet`` at 608 bf16
+    on the card (``xla`` NMS, programs for b1 and b8), ``ServingModel``
+    serving four batches of 8, one of 3 (padded) and one of 11 (chunked)
+    against the live step, the served b8 step beside the live one, and a
+    ``multigriddet_tiny`` artifact traced on the CPU served on the card."""
+    import shutil
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.inference.export import (ServingModel,
+                                                         export_serving)
+    from multigriddet_tpu_torch.models import (create_model,
+                                               load_flax_variables,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.training.steps import (fetch_detections,
+                                                       make_infer_step)
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, 'build', 'chip_smoke_export')
+    shutil.rmtree(root, ignore_errors=True)
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    report = {}
+    try:
+        engine = build_engine('xla')
+        kw = dict(confidence=engine.confidence,
+                  nms_threshold=engine.nms_threshold,
+                  nms_method=engine.nms_method, use_iol=engine.use_iol,
+                  max_boxes=engine.max_boxes,
+                  pre_nms_top_k=engine.pre_nms_top_k,
+                  class_aware=engine.class_aware)
+        art = os.path.join(root, 'darknet')
+        t1 = time.perf_counter()
+        meta = export_serving(engine.model, engine.spec['anchors'], HW, art,
+                              batch_sizes=EXPORT_BATCHES,
+                              class_names=engine.class_names, **kw)
+        report['export_s'] = time.perf_counter() - t1
+        report['artifact_mb'] = sum(
+            os.path.getsize(os.path.join(art, n)) for n in os.listdir(art)
+        ) / 2 ** 20
+        t1 = time.perf_counter()
+        serving = ServingModel(art)
+        report['load_s'] = time.perf_counter() - t1
+        live = make_infer_step(engine.model, engine.spec['anchors'], HW, **kw)
+
+        top = max(EXPORT_BATCHES)
+
+        def want(batch):
+            """The live step on ``batch``, chunked by the largest program
+            and each chunk padded to the smallest that fits, as the server
+            does."""
+            out = []
+            for i in range(0, len(batch), top):
+                part = batch[i:i + top]
+                b = min(p for p in EXPORT_BATCHES if p >= len(part))
+                pad = np.zeros((b - len(part), *HW, 3), np.uint8)
+                res = fetch_detections(live(torch.from_numpy(
+                    np.concatenate([part, pad])).to(dev)))
+                out.append([r[:len(part)] for r in res])
+            return [np.concatenate(p) for p in zip(*out)]
+        batches = letterboxed_batches(SERVE_BATCHES + 2, SEED + 21)
+        served = list(batches[:SERVE_BATCHES]) + [
+            batches[-2][:3], np.concatenate([batches[-2], batches[-1][:3]]),
+            batches[-1][:1]]
+        errs = []
+        for i, batch in enumerate(served):
+            got = serving(batch)
+            if got[0].shape[0] != len(batch):
+                raise AssertionError('served batch of the wrong size')
+            errs.append(compare_served(got, want(batch),
+                                       f'export batch {i} (b{len(batch)})'))
+        report['max_abs_diff'] = max(errs)
+        report['served'] = [len(b) for b in served]
+        report['valid_per_image'] = [int(v) for v in
+                                     serving(served[0])[3].sum(1)]
+        x = torch.from_numpy(np.concatenate(served[:SERVE_BATCHES])[:top]
+                             ).to(dev)
+        program = serving._fns[top]
+
+        def served_step():
+            with torch.inference_mode():
+                return program(x)
+
+        def served_step_no_grad():
+            with torch.no_grad():
+                return program(x)
+        # in turns (A B C C B A, twice): steps of identical code drift
+        # within one run
+        steps = {'served_step_ms': served_step,
+                 'served_no_grad_step_ms': served_step_no_grad,
+                 'live_step_ms': lambda: live(x)}
+        order = list(steps) + list(steps)[::-1]
+        turns = {k: [] for k in steps}
+        for k in order + order:
+            turns[k].append(windowed_ms(steps[k])[0])
+        report['step_turns_ms'] = turns
+        report.update({k: float(np.median(v)) for k, v in turns.items()})
+        # where the served program's time goes, beside the live step's
+        report['served_profile'] = profile_calls(served_step, 3,
+                                                 'export_served')
+        report['live_profile'] = profile_calls(lambda: live(x), 3,
+                                               'export_live')
+        del serving, program, live, engine
+        torch.cuda.empty_cache()
+
+        # multigriddet_tiny traced on the CPU, served on the card
+        tiny = create_model('multigriddet_tiny', num_classes=3)
+        load_flax_variables(tiny, *random_flax_variables(tiny, seed=SEED))
+        anchors = [np.array([[40, 40], [20, 20], [10, 10]], np.float32) / f
+                   for f in (1, 2, 4)]
+        tkw = dict(confidence=0.05, max_boxes=10, pre_nms_top_k=64)
+        tart = os.path.join(root, 'tiny_cpu')
+        export_serving(tiny, anchors, EXPORT_TINY_HW, tart, batch_sizes=[2],
+                       device='cpu', **tkw)
+        imgs = np.random.RandomState(SEED + 22).randint(
+            0, 255, (2, *EXPORT_TINY_HW, 3)).astype(np.uint8)
+        got = ServingModel(tart)(imgs)
+        tiny.to(dev)
+        tlive = make_infer_step(tiny, anchors, EXPORT_TINY_HW, **tkw)
+        report['tiny_cpu_traced_max_abs_diff'] = compare_served(
+            got, fetch_detections(tlive(torch.from_numpy(imgs).to(dev))),
+            'tiny artifact traced on the CPU')
+        report['tiny_valid'] = int(got[3].sum())
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        shutil.rmtree(root, ignore_errors=True)
+    report['programs'] = meta['programs']
+    report['seconds'] = time.perf_counter() - t0
+    served_p, live_p = report['served_profile'], report['live_profile']
+    if served_p and live_p:
+        # the host ops a call that the served program runs more (or
+        # fewer) of than the live step
+        sc, lc = served_p['host_counts'], live_p['host_counts']
+        report['host_ops_extra'] = {
+            k: sc.get(k, 0) - lc.get(k, 0) for k in sorted(set(sc) | set(lc))
+            if sc.get(k, 0) != lc.get(k, 0)}
+        log(f'[export] host ops a call, served minus live: '
+            f'{report["host_ops_extra"]}')
+    for what in ('served', 'live'):
+        prof = report[f'{what}_profile']
+        if prof:
+            log(f'[export] {what} b{B} step profiled: {prof["wall_ms"]:.1f} '
+                f'ms wall, {prof["kernels"]:.0f} CUDA kernels, device '
+                f'{sum(prof["group_ms"].values()):.2f} ms '
+                f'({prof["group_ms"]}), busy '
+                f'{prof["device_busy_share"]:.1%}; host '
+                f'{prof["host_ops"]:.0f} top-level ops, '
+                f'{prof["host_op_ms"]:.2f} ms inside them '
+                f'({prof["host_top"]})')
+    log(f'[export] multigriddet_darknet @{HW[0]} bf16, xla NMS: exported '
+        f'b{EXPORT_BATCHES} in {report["export_s"]:.1f} s '
+        f'({report["artifact_mb"]:.1f} MB), loaded in '
+        f'{report["load_s"]:.1f} s; served batches of {report["served"]} '
+        f'equal to the live step (largest float difference '
+        f'{report["max_abs_diff"]:.3e}); b{B} step served '
+        f'{report["served_step_ms"]:.3f} ms under inference_mode, '
+        f'{report["served_no_grad_step_ms"]:.3f} ms under no_grad, vs live '
+        f'{report["live_step_ms"]:.3f} ms (medians of 4 turns: '
+        f'{report["step_turns_ms"]}); tiny artifact traced on the CPU '
+        f'served on the card: {report["tiny_cpu_traced_max_abs_diff"]:.3e} '
+        f'({report["tiny_valid"]} detections); {report["seconds"]:.1f} s; '
+        f'card: {smi}')
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 11: data parallel
+# ---------------------------------------------------------------------------
+
+DP_HW, DP_GLOBAL_B, DP_STEPS, DP_LR = (416, 416), 4, 2, 1e-4
+# two gloo ranks on the card against one process on the whole batch,
+# relative to max(1, |v|).  Darknet in float32 (TF32 off): the first
+# step's loss terms, from identical weights, within DP_RTOL; after an
+# update its float32 gradients at this random init carry float32's own
+# rounding (phase 7 holds float64 gradients for the same reason), which
+# the phase shows by one process in float32 against one in float64 on the
+# same steps.  So darknet's loss terms, running statistics and parameters
+# after the steps are held in float64, within DP_RTOL64 (the CPU test's
+# bound), and float32 after the steps is held within DP_RTOL on a
+# well-conditioned configuration on the same CUDA tensors path (DP_TINY:
+# multigriddet_tiny @64, same loss and LR; its loss falls 4928 -> 3480 over
+# the two steps, where LR 1e-3 already raises it).
+DP_RTOL, DP_RTOL64 = 1e-5, 1e-10
+DP_TINY = dict(arch='multigriddet_tiny', hw=(64, 64))
+DP_TIMEOUT = 600
+
+
+def _dist_cfg(rank, world, port):
+    return {'enabled': True, 'coordinator_address': f'localhost:{port}',
+            'num_processes': world, 'process_id': rank}
+
+
+def _init_gloo(rank, world, port):
+    """Two ranks share the one card, which NCCL refuses: a gloo group on
+    CUDA tensors, which ``maybe_initialize`` then finds and keeps."""
+    import torch.distributed as dist
+    dist.init_process_group('gloo', init_method=f'tcp://localhost:{port}',
+                            world_size=world, rank=rank)
+
+
+def dp_steps(dev, dtype, steps=DP_STEPS, timed=False,
+             arch='multigriddet_darknet', hw=DP_HW, lr=DP_LR):
+    """``steps`` SGD steps (learning rate ``lr``) of ``arch`` at ``hw`` in
+    ``dtype`` on this rank's share of each global batch of
+    ``DP_GLOBAL_B`` (all of it single-process), from seeded weights;
+    ``timed``: then the step's time and the gradient all-reduce's time
+    alone.  Returns the metrics, the final parameters and statistics on
+    the CPU, and the times."""
+    import torch
+    from multigriddet_tpu_torch.config import (build_model_from_config,
+                                               loss_config_from_config)
+    from multigriddet_tpu_torch.data.pipeline import _device_stage
+    from multigriddet_tpu_torch.models import (load_flax_variables,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.ops.yuv import rgb_to_yuv420_np
+    from multigriddet_tpu_torch.parallel import (all_reduce_grads,
+                                                 make_mesh, replicate,
+                                                 shard_batch)
+    from multigriddet_tpu_torch.training import (TrainOptimizer,
+                                                 create_train_state,
+                                                 make_train_step)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config('', hw, mixed=False)
+    cfg['model']['preset']['architecture'] = arch
+    model, spec = build_model_from_config(cfg, dtype=dtype)
+    load_flax_variables(model, *random_flax_variables(model, seed=SEED))
+    model.to(dev, dtype).train()
+    loss_cfg = loss_config_from_config(cfg)
+    mesh = make_mesh()
+    replicate(mesh, model)
+    state = create_train_state(model, TrainOptimizer(
+        torch.optim.SGD(model.parameters(), lr=lr)))
+    step = make_train_step(spec['anchors'], NUM_CLASSES, hw, loss_cfg)
+    _, canvases, boxes = train_frames(DP_GLOBAL_B * (steps + 1), SEED + 31,
+                                      hw)
+    batches = []
+    for i in range(steps + 1):
+        sl = slice(i * DP_GLOBAL_B, (i + 1) * DP_GLOBAL_B)
+        images, y_true, _ = _device_stage(
+            tuple(torch.from_numpy(p) for p in rgb_to_yuv420_np(
+                canvases[sl])), boxes[sl], None, {'enabled': False},
+            spec['anchors'], NUM_CLASSES, hw, True)
+        images, *y_true = shard_batch(mesh, images, *y_true)
+        batches.append((images.to(dev, dtype),
+                        [y.to(dev, dtype) for y in y_true]))
+    metrics = []
+    for images, y_true in batches[:steps]:
+        state, m = step(state, images, y_true)
+        metrics.append({k: float(v) for k, v in m.items()})
+    final = {k: v.detach().cpu().double()
+             for k, v in model.state_dict().items()
+             if not k.endswith('num_batches_tracked')}
+    times = {}
+    if timed:
+        times['step_ms'] = cuda_ms(lambda: step(state, *batches[-1]), 3, 1)
+        params = state.optimizer.params
+        times['grad_allreduce_ms'] = cuda_ms(
+            lambda: all_reduce_grads(params), 3, 1)
+    return {'metrics': metrics, 'final': final, 'times': times}
+
+
+def dp_child(mode, rank, world, port, out, device, root=None):
+    """A rank of phase 11, run as ``chip_smoke.py --dp-child``."""
+    import torch
+    import torch.distributed as dist
+    from multigriddet_tpu_torch.parallel import (local_device,
+                                                 maybe_initialize,
+                                                 world_size)
+    dev = torch.device(device)
+    if mode == 'steps':
+        _init_gloo(rank, world, port)
+        maybe_initialize(_dist_cfg(rank, world, port), dev)
+        dev = local_device(dev)
+        res = {'f32': dp_steps(dev, torch.float32, timed=True),
+               'f64': dp_steps(dev, torch.float64),
+               'tiny_f32': dp_steps(dev, torch.float32, **DP_TINY),
+               'world': world_size()}
+        torch.save(res, os.path.join(out, f'steps_{rank}.pt'))
+    elif mode == 'nccl':
+        # torchrun's variables name the group; environment.distributed
+        # only switches it on
+        os.environ.update(MASTER_ADDR='localhost', MASTER_PORT=str(port),
+                          WORLD_SIZE='1', RANK='0', LOCAL_RANK='0')
+        maybe_initialize({'enabled': 'auto'}, dev)
+        res = dp_steps(local_device(dev), torch.float32, steps=1,
+                       timed=True)
+        res.update(world=world_size(), backend=dist.get_backend())
+        torch.save(res, os.path.join(out, 'nccl.pt'))
+    else:
+        from multigriddet_tpu_torch.training import trainer as trainer_mod
+        writes = []
+        save = trainer_mod.save_params
+        trainer_mod.save_params = lambda *a: (writes.append(a[0]), save(*a))
+        cfg = train_config(os.path.join(root, 'out'), DP_HW)
+        cfg['data'] = {'train_annotation': os.path.join(root, 'train.txt'),
+                       'val_annotation': os.path.join(root, 'val.txt')}
+        cfg['data_loader'].update(disk_cache_dir=os.path.join(root, 'cache'),
+                                  num_workers=2)
+        cfg['training'].update(batch_size=DP_GLOBAL_B, epochs=1)
+        cfg['environment']['distributed'] = _dist_cfg(rank, world, port)
+        _init_gloo(rank, world, port)
+        history = trainer_mod.MultiGridTrainer(cfg, device=dev).train()
+        with open(os.path.join(out, f'trainer_{rank}.json'), 'w') as f:
+            json.dump({'history': history, 'writes': writes,
+                       'world': world_size()}, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(mode, out, dev, world=2, root=None):
+    """``world`` ranks of ``mode`` on ``dev`` (``chip_smoke.py
+    --dp-child``), each awaited with ``DP_TIMEOUT``; any failure raises
+    with its output."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--dp-child', mode,
+         str(rank), str(world), str(port), out, str(dev)]
+        + ([root] if root else []),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f'phase 11 {mode} rank failed:\n{o[-3000:]}')
+
+
+def rel_err(got, want):
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) / max(1.0,
+                                                  float(np.abs(want).max()))
+
+
+def dp_errors(dp, one):
+    """``dp``'s first-step loss terms, loss terms over the steps, running
+    statistics and parameters against ``one``'s (``rel_err``)."""
+    return {
+        'first_loss_rel': max(rel_err(dp['metrics'][0][k], v)
+                              for k, v in one['metrics'][0].items()),
+        'loss_rel': max(rel_err(a[k], b[k]) for a, b in
+                        zip(dp['metrics'], one['metrics']) for k in b),
+        'stat_rel': max(rel_err(v, one['final'][k])
+                        for k, v in dp['final'].items() if 'running' in k),
+        'param_rel': max(rel_err(v, one['final'][k])
+                         for k, v in dp['final'].items()
+                         if 'running' not in k),
+        'num_positives': dp['metrics'][0].get('num_positives'),
+        'loss': [m['loss'] for m in dp['metrics']]}
+
+
+def phase_data_parallel(dev, smi):
+    """Phase 11: (1) two gloo ranks on the one card (CUDA tensors) against
+    one process on the concatenated batch: ``multigriddet_darknet`` at 416,
+    TF32 off, global b4, two SGD steps -- float32 first-step loss terms
+    within ``DP_RTOL``, float64 loss terms, statistics and parameters
+    within ``DP_RTOL64``, one process in float32 against one in float64
+    printed; ``DP_TINY`` in float32, loss terms, statistics and parameters
+    after the steps within ``DP_RTOL``; (2) one NCCL process at world size
+    1 through ``environment.distributed`` and torchrun's variables; (3) a
+    two-rank gloo ``MultiGridTrainer.train()`` for one epoch: one writer,
+    equal losses."""
+    import math
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    out = os.path.join(REPO, 'build', 'chip_smoke_dp')
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    report = {}
+    try:
+        launch_ranks('steps', out, dev)
+        ranks = [torch.load(os.path.join(out, f'steps_{r}.pt'))
+                 for r in range(2)]
+        if not (ranks[0]['world'] == ranks[1]['world'] == 2 and all(
+                ranks[0][p]['metrics'] == ranks[1][p]['metrics']
+                and all(torch.equal(v, ranks[1][p]['final'][k])
+                        for k, v in ranks[0][p]['final'].items())
+                for p in ('f32', 'f64', 'tiny_f32'))):
+            raise AssertionError('the two ranks disagree')
+        errs, singles = {}, {}
+        for p, dtype in (('f32', torch.float32), ('f64', torch.float64)):
+            singles[p] = one = dp_steps(dev, dtype, timed=p == 'f32')
+            errs[p] = dict(dp_errors(ranks[0][p], one),
+                           rank_times=ranks[0][p]['times'],
+                           single_times=one['times'])
+            torch.cuda.empty_cache()
+        # the witness: float32's own rounding on the same steps, one
+        # process in float32 against one in float64
+        errs['f32_vs_f64'] = dp_errors(singles['f32'], singles['f64'])
+        del singles, one
+        errs['tiny_f32'] = dp_errors(
+            ranks[0]['tiny_f32'], dp_steps(dev, torch.float32, **DP_TINY))
+        report['two_ranks'] = errs
+        e32, e64, tiny = errs['f32'], errs['f64'], errs['tiny_f32']
+        held64 = max(e64['loss_rel'], e64['stat_rel'], e64['param_rel'])
+        held_tiny = max(tiny['loss_rel'], tiny['stat_rel'],
+                        tiny['param_rel'])
+        if not (e32['first_loss_rel'] <= DP_RTOL and held64 <= DP_RTOL64
+                and held_tiny <= DP_RTOL and tiny['num_positives'] > 0):
+            raise AssertionError(
+                f'two gloo ranks vs one process: darknet float32 first-step '
+                f'loss terms {e32["first_loss_rel"]:.3e} (bound {DP_RTOL}); '
+                f'darknet float64 loss, statistics, parameters '
+                f'{held64:.3e} (bound {DP_RTOL64}); tiny float32 after '
+                f'{DP_STEPS} steps {held_tiny:.3e} (bound {DP_RTOL}, '
+                f'{tiny["num_positives"]} positives)')
+
+        launch_ranks('nccl', out, dev, world=1)
+        nccl = torch.load(os.path.join(out, 'nccl.pt'))
+        if not (nccl['backend'] == 'nccl' and nccl['world'] == 1
+                and all(map(math.isfinite, nccl['metrics'][0].values()))):
+            raise AssertionError(f'NCCL world-1 run: {nccl["backend"]}, '
+                                 f'world {nccl["world"]}')
+        report['nccl_world1'] = {'loss': nccl['metrics'][0]['loss'],
+                                 'times': nccl['times']}
+
+        root = os.path.join(out, 'data')
+        os.makedirs(root)
+        lines, canvases, boxes = train_frames(8, SEED + 32, DP_HW)
+        write_frames(root, 'train.txt', lines, canvases, boxes, 'yuv420',
+                     DP_HW)
+        vlines, vcanvases, vboxes = train_frames(4, SEED + 33, DP_HW)
+        write_frames(root, 'val.txt', vlines, vcanvases, vboxes, 'rgb',
+                     DP_HW)
+        launch_ranks('trainer', out, dev, root=root)
+        r0, r1 = [json.load(open(os.path.join(out, f'trainer_{r}.json')))
+                  for r in range(2)]
+        final = os.path.join(root, 'out', 'models', 'final_model.msgpack')
+        with open(os.path.join(root, 'out', 'logs', 'history.jsonl')) as f:
+            hist = f.read().splitlines()
+        l0 = [h['loss'] for h in r0['history']]
+        if not (l0 == [h['loss'] for h in r1['history']]
+                and [h['val_loss'] for h in r0['history']]
+                == [h['val_loss'] for h in r1['history']]
+                and all(map(math.isfinite, l0))
+                and r0['history'][0]['steps'] == 2
+                and (r0['writes'], r1['writes']) == ([final], [])
+                and os.path.exists(final) and len(hist) == 1):
+            raise AssertionError(f'two-rank trainer: {r0}, {r1}, history '
+                                 f'{len(hist)} lines')
+        report['trainer'] = {'loss': l0,
+                             'val_loss': r0['history'][0]['val_loss'],
+                             'images_per_sec':
+                             r0['history'][0]['images_per_sec']}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    report['seconds'] = time.perf_counter() - t0
+    t, t64 = report['two_ranks']['f32'], report['two_ranks']['f64']
+    w, tiny = report['two_ranks']['f32_vs_f64'], report['two_ranks']['tiny_f32']
+    log(f'[data parallel] two gloo ranks on one card vs one process, '
+        f'multigriddet_darknet @{DP_HW[0]}, global b{DP_GLOBAL_B}, '
+        f'{DP_STEPS} SGD steps: float64 loss {t64["loss_rel"]:.3e}, '
+        f'statistics {t64["stat_rel"]:.3e}, parameters '
+        f'{t64["param_rel"]:.3e}; float32 first-step loss '
+        f'{t["first_loss_rel"]:.3e} (after the steps: loss '
+        f'{t["loss_rel"]:.3e}, statistics {t["stat_rel"]:.3e}, parameters '
+        f'{t["param_rel"]:.3e}, not held; one process float32 vs float64: '
+        f'loss {w["loss_rel"]:.3e}, statistics {w["stat_rel"]:.3e}, '
+        f'parameters {w["param_rel"]:.3e}); {DP_TINY["arch"]} '
+        f'@{DP_TINY["hw"][0]} float32 after the steps: loss '
+        f'{tiny["loss_rel"]:.3e}, statistics {tiny["stat_rel"]:.3e}, '
+        f'parameters {tiny["param_rel"]:.3e}; a rank\'s f32 step '
+        f'{t["rank_times"]["step_ms"]:.1f} ms (gradient all-reduce '
+        f'{t["rank_times"]["grad_allreduce_ms"]:.1f} ms), one process on '
+        f'b{DP_GLOBAL_B} {t["single_times"]["step_ms"]:.1f} ms; NCCL '
+        f'world 1: loss {report["nccl_world1"]["loss"]:.3f}, step '
+        f'{report["nccl_world1"]["times"]["step_ms"]:.1f} ms; two-rank '
+        f'trainer epoch loss {report["trainer"]["loss"][0]:.4f} on both, '
+        f'one writer; {report["seconds"]:.1f} s; card: {smi}')
+    return report
+
+
 _STEP_TIMES_CHILD = """
 import importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -2165,7 +2724,14 @@ def main(argv=None) -> int:
                    help='only time the darknet serve and train steps of the '
                         'port in each checkout, in turn (e.g. parent, change, '
                         'change, parent), and exit')
+    p.add_argument('--dp-child', nargs='+', help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.dp_child:      # one rank of phase 11, started by the phase
+        sys.path.insert(0, REPO)
+        mode, rank, world, port, out, device, *root = args.dp_child
+        dp_child(mode, int(rank), int(world), int(port), out, device,
+                 *root)
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -2179,21 +2745,39 @@ def main(argv=None) -> int:
     if args.step_times:
         compare_step_times(args.step_times)
         return 0
+    from multigriddet_tpu_torch.utils.profiling import PhaseTimer
+    dev = torch.device('cuda')
+    timer = PhaseTimer()
     t_start = time.perf_counter()
-    build = phase_build()
-    errs = phase_kernels(torch.device('cuda'))
+    with timer.phase('1 build'):
+        build = phase_build()
+    with timer.phase('2 kernels'):
+        errs = phase_kernels(dev)
     batches = letterboxed_batches(SERVE_BATCHES, SEED)
-    engines, launches, pool = phase_serve(batches)
-    f32_err = phase_f32_parity(engines['pallas_fused'], batches[0])
-    times, ktimes = phase_times(engines, batches, pool)
-    t_eval = time.perf_counter()
-    evaluate = phase_evaluate(pool, smi)
-    evaluate['seconds'] = time.perf_counter() - t_eval
+    with timer.phase('3 serve'):
+        engines, launches, pool = phase_serve(batches)
+    with timer.phase('4 f32 parity'):
+        f32_err = phase_f32_parity(engines['pallas_fused'], batches[0])
+    with timer.phase('5 times'):
+        times, ktimes = phase_times(engines, batches, pool)
+    with timer.phase('6 evaluate'):
+        evaluate = phase_evaluate(pool, smi)
+    evaluate['seconds'] = timer.totals['6 evaluate']
     log(f'[evaluate] phase took {evaluate["seconds"]:.1f} s')
-    train = phase_train(torch.device('cuda'), smi)
+    with timer.phase('7 train'):
+        train = phase_train(dev, smi)
     log(f'[train] phase took {train["seconds"]:.1f} s')
-    overfit = phase_overfit_map(torch.device('cuda'), smi)
-    zoo = phase_zoo(torch.device('cuda'), smi)
+    with timer.phase('8 overfit'):
+        overfit = phase_overfit_map(dev, smi)
+    with timer.phase('9 zoo'):
+        zoo = phase_zoo(dev, smi)
+    del engines
+    torch.cuda.empty_cache()
+    with timer.phase('10 export'):
+        export = phase_export(dev, smi)
+    with timer.phase('11 data parallel'):
+        data_parallel = phase_data_parallel(dev, smi)
+    log('[phases]\n' + timer.summary())
 
     src = 'multigriddet_tpu_torch/csrc/nms.cu'
     replaces = {'popmax_nms': 'multigriddet_tpu/ops/pallas_nms.py:115',
@@ -2220,6 +2804,8 @@ def main(argv=None) -> int:
                        'f32_parity_rel_err': f32_err, 'kernels': kernels,
                        'evaluate': evaluate, 'train': train,
                        'overfit_map': overfit, 'zoo': zoo,
+                       'export': export, 'data_parallel': data_parallel,
+                       'phase_seconds': timer.totals,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},
                        'kernel_call_ms': {k['name']: k['call_ms']

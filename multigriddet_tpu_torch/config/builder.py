@@ -90,7 +90,8 @@ def build_model_from_config(config: Dict[str, Any],
     ``bn_momentum`` nor ``environment.remat``.  A preset reads both
     (``remat``: false, true / ``'conv'`` or ``'full'``).
     ``model.s2d_stem`` is not read: it selects a TPU execution rewrite of
-    the same function and parameters in the JAX package.
+    the same function and parameters in the JAX package, with no gain on
+    a GPU (ROADMAP item 19).
     """
     spec = model_spec_from_config(config)
     num_anchors = tuple(len(a) for a in spec['anchors'])

@@ -1,5 +1,7 @@
-"""Serving entry point of the port."""
+"""Serving entry points of the port: the engine and the exported
+artifact."""
 
 from .engine import MultiGridInference
+from .export import ServingModel, export_serving
 
-__all__ = ['MultiGridInference']
+__all__ = ['MultiGridInference', 'ServingModel', 'export_serving']

@@ -20,6 +20,13 @@ gradient in JAX (``stop_gradient``); here they are computed under
 ``torch.no_grad()``, so autograd keeps none of the ``[B, cells, G]`` IoU
 tensors for the backward.  The IoU against the GT boxes is taken one
 anchor at a time, which bounds its peak memory to ``[B, cells, G]``.
+
+Under data parallel (``parallel.distributed``) the normalizers are the
+global batch's: the ``batch`` and ``grid`` factors count the global batch,
+the ``positives`` factor and the consensus normalizer sum over the ranks.
+Each rank's loss is then its share of the global loss, and the ranks'
+gradients and metrics are summed (``num_positives`` stays the rank's own
+count until the step sums the metrics).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 from ..device import to_device
 from ..ops.decode import xy_activation
 from ..ops.encoding import extract_center_gt_boxes
+from ..parallel.distributed import all_sum, world_size
 from .focal import (binary_cross_entropy_with_logits, sigmoid_focal_loss,
                     softmax_focal_loss)
 from .iou import iou_family_loss
@@ -88,7 +96,8 @@ def _norm_factor(cfg: LossConfig, batch: int, gh: int, gw: int,
         elif kind == 'grid':
             factor = factor * (batch * gh * gw)
         elif kind == 'positives':
-            factor = factor * torch.clamp_min(torch.sum(object_mask), 1.0)
+            factor = factor * torch.clamp_min(all_sum(torch.sum(object_mask)),
+                                              1.0)
     return torch.clamp_min(factor, 1.0)
 
 
@@ -224,7 +233,7 @@ def _consensus_losses(cfg: LossConfig, pred_xy, pred_wh, pred_obj,
     w = raw_w / (torch.sum(raw_w, dim=3, keepdim=True) + cfg.eps)
     w_s = w[..., 0]
 
-    normalizer = torch.clamp_min(torch.sum(center_mask), 1.0)
+    normalizer = torch.clamp_min(all_sum(torch.sum(center_mask)), 1.0)
 
     def variance(x):
         xp = _patches(x, k)
@@ -262,7 +271,8 @@ def multigrid_loss(y_pred: Sequence[torch.Tensor],
     copies); ``strides``: per-layer strides (default: ``input_hw`` over the
     grid).  Returns (scalar total, metrics dict of scalars).
     """
-    batch = y_pred[0].shape[0]
+    # the global batch under data parallel (``parallel.distributed``)
+    batch = y_pred[0].shape[0] * world_size()
     dev = y_pred[0].device
     if class_weights is None:
         class_weights = torch.ones((num_classes,), device=dev)

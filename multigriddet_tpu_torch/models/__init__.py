@@ -11,6 +11,7 @@ from .head import MultiGridHead, MultiGridLiteHead, PANetHead
 from .layers import (ConvBN, PredictConv, SeparableConvBN, batch_norm,
                      leaky_relu, mish, spp, upsample2x)
 from .neck import MultiGridFPN
+from .porting import module_call_order, port_keras_weights
 from .registry import (create_model, get_backbone, get_head, get_neck,
                        list_available_models, list_components,
                        register_backbone, register_head, register_model,
@@ -29,10 +30,12 @@ __all__ = [
     'flax_to_state_dict', 'get_backbone', 'get_head', 'get_neck',
     'leaky_relu', 'list_available_models', 'list_components',
     'load_flax_variables', 'load_weights_flexible', 'mish',
+    'module_call_order',
     'msgpack_restore', 'msgpack_serialize', 'multigriddet_csp_darknet',
     'multigriddet_darknet', 'multigriddet_darknet_lite',
     'multigriddet_darknet_panet', 'multigriddet_darknet_spp',
     'multigriddet_mobile', 'multigriddet_resnet', 'multigriddet_tiny',
+    'port_keras_weights',
     'random_flax_variables', 'register_backbone', 'register_head',
     'register_model', 'register_neck', 'spp', 'state_dict_to_flax',
     'upsample2x',

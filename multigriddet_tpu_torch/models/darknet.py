@@ -13,7 +13,7 @@ Counterpart of ``multigriddet_tpu/models/darknet.py``:
 The JAX package's ``s2d_stem`` is a space-to-depth execution rewrite for
 the TPU's matrix unit with canonical parameter shapes; the same weights
 give the same function through the plain 3x3 convs, which is all this
-port runs.
+port runs (ROADMAP item 19).
 """
 
 from __future__ import annotations

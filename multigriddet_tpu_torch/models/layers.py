@@ -45,6 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.distributed import all_mean
+
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99     # flax convention: the weight of the old value
 
@@ -128,11 +130,15 @@ def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d, train: bool,
                momentum: float) -> torch.Tensor:
     """flax BatchNorm of an NCHW tensor, in float32 (float64 for a float64
     model, the reference of the port's gradient checks); see the module
-    docstring.  In training the running statistics update in place."""
+    docstring.  In training the running statistics update in place.
+
+    Under data parallel (``parallel.distributed``), the batch moments are
+    averaged over the ranks with an autograd-aware all-reduce, so they
+    are the global batch's (flax's ``axis_name`` pmean)."""
     yf = y if y.dtype == torch.float64 else y.float()
     if train:
-        mean = yf.mean((0, 2, 3))
-        mean2 = yf.square().mean((0, 2, 3))
+        mean, mean2 = all_mean(yf.mean((0, 2, 3)),
+                               yf.square().mean((0, 2, 3)))
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
         if not getattr(_LOCAL, 'frozen_stats', False):
             with torch.no_grad():

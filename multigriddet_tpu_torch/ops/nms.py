@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 from . import cuda_nms
 from .geometry import pairwise_diou_xywh_topleft, pairwise_iou_xywh_topleft
@@ -51,35 +52,66 @@ def _soft_nms_sweep(overlap: torch.Tensor, scores: torch.Tensor,
                     valid: torch.Tensor, sigma: float,
                     score_floor: float) -> torch.Tensor:
     """Gaussian soft-NMS in the original descending-score order; returns
-    decayed scores with dropped entries at ``NEG_INF``."""
+    decayed scores with dropped entries at ``NEG_INF``.
+
+    Eagerly the K steps run as a Python loop with a Python index (no host
+    sync); under ``torch.export`` the same body runs in a
+    ``while_loop`` with a tensor index (``lax.fori_loop`` in JAX), so the
+    exported program does not unroll K steps."""
     k = overlap.shape[-1]
     iota = torch.arange(k, device=overlap.device)
-    neg = torch.tensor(NEG_INF, device=scores.device)
-    s = torch.where(valid, scores, neg)
-    for i in range(k):
-        cur_ok = (s[:, i] >= score_floor)[:, None]
-        decayed = s * torch.exp(-(overlap[:, i] ** 2) / sigma)
+    neg = torch.full((), NEG_INF, device=scores.device)
+
+    def body(i, s, overlap, valid, iota):
+        at = (i.reshape(1) if isinstance(i, torch.Tensor)
+              else iota.narrow(0, i, 1))
+        cur_ok = s.index_select(1, at) >= score_floor
+        row = overlap.index_select(1, at)[:, 0]
+        decayed = s * torch.exp(-(row ** 2) / sigma)
         s = torch.where(cur_ok & (iota > i) & valid, decayed, s)
-        s = torch.where((iota == i) & ~cur_ok, neg, s)
+        s = torch.where((iota == i) & ~cur_ok,
+                        torch.full((), NEG_INF, device=s.device), s)
+        return i + 1, s
+
+    s = torch.where(valid, scores, neg)
+    if torch.compiler.is_exporting():
+        _, s = while_loop_op(
+            lambda i, s, *_: i < k, body,
+            (torch.zeros((), dtype=torch.int64, device=s.device), s),
+            (overlap, valid, iota))
+    else:
+        for i in range(k):
+            _, s = body(i, s, overlap, valid, iota)
     return torch.where(s >= score_floor, s, neg)
 
 
 def _cluster_nms_sweep(overlap: torch.Tensor, valid: torch.Tensor,
                        nms_threshold: float) -> torch.Tensor:
     """Cluster-NMS matrix iteration (arXiv:2005.03572) to a fixed point,
-    at most K rounds; the same keep set as the greedy sweep."""
+    at most K rounds; the same keep set as the greedy sweep.
+
+    A ``while_loop`` (``lax.while_loop`` in JAX): eagerly a Python loop
+    that reads the condition on the host each round, under
+    ``torch.export`` one loop node, so the live step and an exported
+    program run this one function."""
     k = overlap.shape[-1]
     idx = torch.arange(k, device=overlap.device)
     upper = idx[:, None] < idx[None, :]
     x = torch.where(upper & valid[:, None, :] & valid[:, :, None], overlap,
                     torch.zeros((), device=overlap.device))
-    keep, prev = valid, torch.zeros_like(valid)
-    it = 0
-    while it < k and bool(torch.any(keep != prev)):
-        prev = keep
+
+    def cond(keep, prev, it, x, valid):
+        return torch.any(keep != prev) & (it < k)
+
+    def body(keep, prev, it, x, valid):
         maxcol = torch.amax(x * keep[:, :, None].to(x.dtype), dim=1)
-        keep = (maxcol < nms_threshold) & valid
-        it += 1
+        return (maxcol < nms_threshold) & valid, keep.clone(), it + 1
+
+    keep, _, _ = while_loop_op(
+        cond, body,
+        (valid, torch.zeros_like(valid),
+         torch.zeros((), dtype=torch.int64, device=valid.device)),
+        (x, valid))
     return keep
 
 

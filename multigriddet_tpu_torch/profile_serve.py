@@ -1,7 +1,7 @@
 """Where the device time of the fused serve step goes, on the card.
 
     python -m multigriddet_tpu_torch.profile_serve [--backend pallas_fused]
-        [--report PATH]
+        [--report PATH] [--trace-dir DIR]
 
 Builds ``MultiGridInference`` for ``multigriddet_darknet`` (80 classes,
 COCO anchors, bfloat16, seeded random weights, confidence 0 so NMS sees
@@ -10,6 +10,9 @@ device-resident b8 @608 uint8 batch with ``torch.profiler``.  Prints
 device time by kernel group (convolution, elementwise and reductions, NMS
 kernels, other), the costliest kernels, and the device's busy share of
 the window (union of kernel intervals over the host-clock wall time).
+The capture (``utils.profiling.trace``) is also written as a Chrome /
+Perfetto trace into ``--trace-dir`` (default ``build/traces/profile_serve``
+in the checkout).
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from collections import defaultdict
 
 import torch
 
+from .utils.profiling import trace
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, SIZE, STEPS = 8, 608, 10
 _GROUPS = (
     ('nms', ('popmax', 'greedy')),
@@ -57,12 +63,14 @@ def main(argv=None) -> int:
     p.add_argument('--backend', default='pallas_fused',
                    choices=['pallas_fused', 'pallas', 'xla'])
     p.add_argument('--report', default=None)
+    p.add_argument('--trace-dir',
+                   default=os.path.join(REPO, 'build', 'traces',
+                                        'profile_serve'))
     args = p.parse_args(argv)
 
     from .inference import MultiGridInference
     from .models import load_flax_variables, random_flax_variables
-    anchors = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), 'configs', 'yolov3_coco_anchor.txt')
+    anchors = os.path.join(REPO, 'configs', 'yolov3_coco_anchor.txt')
     shape = [SIZE, SIZE, 3]
     engine = MultiGridInference({
         'model': {'type': 'preset', 'preset': {
@@ -81,9 +89,7 @@ def main(argv=None) -> int:
         engine.infer_batch(x)
     torch.cuda.synchronize()
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with trace(args.trace_dir) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
             engine.infer_batch(x)

@@ -7,7 +7,9 @@ function recovers each batch's moments from the running-average update by
 measuring every layer's momentum; the port's BatchNorm is its own, so it
 reads the moments directly: with the momentum set to 0 for the sweep, a
 train-mode forward leaves exactly the batch's moments in the running
-buffers.
+buffers.  Under data parallel those are the global batch's moments
+(``models/layers.py`` ``batch_norm`` averages them over the ranks), so
+every rank derives the same statistics.
 """
 
 from __future__ import annotations

@@ -11,7 +11,10 @@ semantics of the optax chain the JAX trainer builds: the learning rate of
 update ``n`` is ``schedule(n)``, read before the count advances (optax's
 ``scale_by_schedule``), and with ``every_k > 1`` the gradients of ``k``
 micro-batches are averaged (Welford, as ``optax.MultiSteps``) into one
-update per ``k`` calls, the schedule counting updates, not calls.
+update per ``k`` calls, the schedule counting updates, not calls.  Under
+data parallel (``parallel.distributed``) it sums the gradients over the
+ranks once per update, just before the update: each rank's loss is its
+share of the global loss, so the sum is the global gradient.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+
+from ..parallel.distributed import all_reduce_grads
 
 
 class TrainOptimizer:
@@ -60,6 +65,7 @@ class TrainOptimizer:
             for p, a in zip(params, self._acc):
                 p.grad = a
             self._acc = None
+        all_reduce_grads(params)
         if self.schedule is not None:
             lr = float(self.schedule(self.count))
             for group in self.inner.param_groups:

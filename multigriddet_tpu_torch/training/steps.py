@@ -13,6 +13,9 @@ NMS run in float32.
   link-format batch (device stage, then the train step) in one call.
 * :func:`make_eval_step`: inference-mode forward + loss metrics.
 * :func:`make_infer_step`: the fused forward + decode + NMS of serving.
+
+Under data parallel (``parallel.distributed``) the train and eval steps
+return metrics summed over the ranks: the global loss terms.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..losses import LossConfig, multigrid_loss
 from ..ops.decode import decode_for_nms
 from ..ops.nms import NEG_INF, batched_nms, gather_rows, top_k
 from ..ops.yuv import yuv420_to_rgb
+from ..parallel.distributed import all_sum_metrics
 
 
 class _OnDevice:
@@ -94,7 +98,7 @@ def _build_train_core(anchors, num_classes, loss_cfg=LossConfig(),
         state.step += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics['loss'] = total.detach()
-        return state, metrics
+        return state, all_sum_metrics(metrics)
 
     return step
 
@@ -184,7 +188,7 @@ def make_eval_step(anchors: Sequence[np.ndarray], num_classes: int,
             strides=strides)
         metrics = dict(metrics)
         metrics['loss'] = total
-        return metrics
+        return all_sum_metrics(metrics)
 
     return step
 
@@ -206,30 +210,22 @@ def candidate_pool(model, images: torch.Tensor, anchors: Sequence,
     return tl, scores, classes
 
 
-def make_infer_step(model, anchors: Sequence[np.ndarray],
-                    input_hw: Tuple[int, int],
-                    confidence: float = 0.1,
-                    nms_threshold: float = 0.45,
-                    nms_method: str = 'diou',
-                    use_iol: bool = True,
-                    max_boxes: int = 100,
-                    pre_nms_top_k: int = 1024,
-                    class_aware: bool = False,
-                    nms_backend: str = 'xla',
-                    use_wbf: bool = False,
-                    pack_outputs: bool = False,
-                    link_format: str = 'rgb') -> Callable:
-    """Fused forward + decode + NMS.
-
-    ``link_format='rgb'`` gives ``step(images)`` for ``[B, H, W, 3]``
-    uint8 (divided by 255 on the device) or float images;
-    ``'yuv420'`` gives ``step(y, cb, cr)`` for planar 4:2:0 uint8.
-    Returns ``(boxes [B, K, 4] top-left canvas pixels, classes [B, K]
-    int32, scores [B, K], valid [B, K] bool)``, or with ``use_wbf`` the
-    ``pre_nms_top_k`` confidence-filtered candidates in score order, or
-    with ``pack_outputs`` one ``[B, 7, K]`` float32 tensor
-    ``[x, y, w, h, class, score, valid]``.
-    """
+def make_infer_fn(model, anchors: Sequence[np.ndarray],
+                  input_hw: Tuple[int, int],
+                  confidence: float = 0.1,
+                  nms_threshold: float = 0.45,
+                  nms_method: str = 'diou',
+                  use_iol: bool = True,
+                  max_boxes: int = 100,
+                  pre_nms_top_k: int = 1024,
+                  class_aware: bool = False,
+                  nms_backend: str = 'xla',
+                  use_wbf: bool = False,
+                  pack_outputs: bool = False,
+                  link_format: str = 'rgb') -> Callable:
+    """The chain of :func:`make_infer_step` without its
+    ``torch.inference_mode`` wrapper: what ``inference/export.py`` traces
+    (under ``torch.no_grad``, the model in eval mode)."""
     anchors = [np.asarray(a, np.float32) for a in anchors]
     if link_format not in ('rgb', 'yuv420'):
         raise ValueError(f'unknown link_format {link_format!r}')
@@ -255,17 +251,38 @@ def make_infer_step(model, anchors: Sequence[np.ndarray],
                               s[:, None].float(), v[:, None].float()], dim=1)
         return res
 
-    @torch.inference_mode()
     def step(images):
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
         return _forward_chain(images)
 
-    @torch.inference_mode()
     def step_yuv(y, cb, cr):
         return _forward_chain(yuv420_to_rgb(y, cb, cr) / 255.0)
 
     return step_yuv if link_format == 'yuv420' else step
+
+
+def make_infer_step(model, anchors: Sequence[np.ndarray],
+                    input_hw: Tuple[int, int], **kwargs) -> Callable:
+    """Fused forward + decode + NMS, under ``torch.inference_mode``.
+
+    Keywords (:func:`make_infer_fn`): ``confidence`` 0.1,
+    ``nms_threshold`` 0.45, ``nms_method`` ``'diou'``, ``use_iol`` True,
+    ``max_boxes`` 100, ``pre_nms_top_k`` 1024, ``class_aware`` False,
+    ``nms_backend`` ``'xla'``, ``use_wbf``, ``pack_outputs``,
+    ``link_format``.
+
+    ``link_format='rgb'`` gives ``step(images)`` for ``[B, H, W, 3]``
+    uint8 (divided by 255 on the device) or float images;
+    ``'yuv420'`` gives ``step(y, cb, cr)`` for planar 4:2:0 uint8.
+    Returns ``(boxes [B, K, 4] top-left canvas pixels, classes [B, K]
+    int32, scores [B, K], valid [B, K] bool)``, or with ``use_wbf`` the
+    ``pre_nms_top_k`` confidence-filtered candidates in score order, or
+    with ``pack_outputs`` one ``[B, 7, K]`` float32 tensor
+    ``[x, y, w, h, class, score, valid]``.
+    """
+    return torch.inference_mode()(
+        make_infer_fn(model, anchors, input_hw, **kwargs))
 
 
 def unpack_detections(packed):

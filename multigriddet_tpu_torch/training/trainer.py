@@ -1,4 +1,4 @@
-"""MultiGridTrainer: two-stage training on one device.
+"""MultiGridTrainer: two-stage, data-parallel training.
 
 Counterpart of ``multigriddet_tpu/training/trainer.py``:
 
@@ -18,9 +18,14 @@ Counterpart of ``multigriddet_tpu/training/trainer.py``:
 
 Each batch goes through the fused train step (the generator's raw u8 batch
 -> device stage -> train step) unless ``training.fused_input_stage`` is
-false.  The port trains on one device: data parallel, spatial partitioning
-and multi-process runs wait for ROADMAP Queue 1 item 13; asking for any of
-them raises ``NotImplementedError``.  ``environment.remat`` checkpoints the
+false.  ``environment.distributed`` trains data parallel, one process per
+GPU (``parallel/distributed.py``; ``torchrun --nproc_per_node=N``):
+``training.batch_size`` is the global batch, each rank reads an equal
+shard of the lines after a seeded shuffle, BatchNorm statistics, loss
+normalizers, gradients and metrics are global, and only rank 0 writes
+logs, checkpoints and ``final_model.msgpack``.  Spatial partitioning
+(``environment.spatial_partition > 1``) raises ``NotImplementedError``
+(ROADMAP item 18).  ``environment.remat`` checkpoints the
 backbone's activations (``models/detector.py``).  With ``data_loader.cache_images_device`` the
 decoded images stay in a device bank (one byte budget,
 ``device_cache_budget_gb``, for the train and validation banks together),
@@ -42,6 +47,8 @@ from ..config import (build_model_for_training, class_weights_from_config,
                       resolve_learning_rate)
 from ..data import MultiGridDataGenerator, load_annotation_lines
 from ..device import resolve_device
+from ..parallel import distributed as dist
+from ..parallel.mesh import make_mesh, replicate
 from .checkpoint import CheckpointManager, model_bundle, save_params
 from .state import apply_freeze, count_params, create_train_state
 from .steps import make_eval_step, make_fused_train_step, make_train_step
@@ -52,15 +59,9 @@ def refuse_unported(config: Dict[str, Any]):
     env = config.get('environment', {}) or {}
     if int(env.get('spatial_partition', 1) or 1) > 1:
         raise NotImplementedError(
-            'environment.spatial_partition > 1 is not ported (ROADMAP Queue '
-            '1 item 13: the port trains on one device)')
-    dist = env.get('distributed') or {}
-    if (dist.get('enabled') in (True, 'true', 'yes')
-            or int(dist.get('num_processes', 1) or 1) > 1
-            or dist.get('coordinator_address')):
-        raise NotImplementedError(
-            'environment.distributed (multi-process training) is not ported '
-            'yet (ROADMAP Queue 1 item 13: the port trains on one device)')
+            'environment.spatial_partition > 1 (dp x sp spatial '
+            'partitioning) is not ported (ROADMAP Queue 1 item 18: every '
+            'convolution needs a halo exchange between the ranks)')
 
 
 @contextlib.contextmanager
@@ -87,8 +88,13 @@ class MultiGridTrainer:
     def __init__(self, config: Dict[str, Any], device=None):
         self.config = config
         refuse_unported(config)
-        self.device = resolve_device(device)
         env = config.get('environment', {}) or {}
+        self.device = resolve_device(device)
+        # multi-process: join the group before anything touches the card,
+        # then train on this rank's own GPU
+        dist.maybe_initialize(env.get('distributed'), self.device)
+        self.device = dist.local_device(self.device)
+        self.mesh = make_mesh()
         self.compute_dtype = (torch.bfloat16 if env.get('mixed_precision')
                               else torch.float32)
         self.training_cfg = config.get('training', {}) or {}
@@ -104,13 +110,21 @@ class MultiGridTrainer:
     def setup_data(self):
         data_cfg = self.config.get('data', {}) or {}
         aug_cfg = dict(self.training_cfg.get('augmentation', {}) or {})
-        batch_size = int(self.training_cfg.get('batch_size', 8))
+        # training.batch_size is the global batch; each rank's generator
+        # yields its 1 / world_size share
+        batch_size = dist.local_batch_size(
+            int(self.training_cfg.get('batch_size', 8)))
         max_boxes = int(aug_cfg.pop('max_boxes_per_image', 100))
         rescale_interval = int(aug_cfg.pop('rescale_interval', -1))
-        self.train_lines = load_annotation_lines(data_cfg['train_annotation'])
+        # multi-process: a seeded load-time shuffle, so that every rank
+        # shards the same order (disjoint equal shards)
+        self.train_lines = dist.shard_lines(load_annotation_lines(
+            data_cfg['train_annotation'],
+            seed=0 if dist.is_multiprocess() else None))
         val_path = data_cfg.get('val_annotation')
-        self.val_lines = (load_annotation_lines(val_path, shuffle=False)
-                          if val_path and os.path.exists(val_path) else [])
+        self.val_lines = dist.shard_lines(
+            load_annotation_lines(val_path, shuffle=False)
+            if val_path and os.path.exists(val_path) else [])
         hw = tuple(self.spec['input_shape'][:2])
         loader_cfg = self.config.get('data_loader', {}) or {}
         workers = int(loader_cfg.get('num_workers', 8))
@@ -145,8 +159,10 @@ class MultiGridTrainer:
         ``resume.backbone_weights_path``)."""
         self.model, self.spec, self.loss_cfg = build_model_for_training(
             self.config, device=self.device, seed=rng_seed)
+        replicate(self.mesh, self.model)      # rank 0's weights everywhere
         hw = tuple(self.spec['input_shape'][:2])
-        print(f"Model: {self.spec['architecture']}  "
+        if dist.is_primary():
+            print(f"Model: {self.spec['architecture']}  "
               f"params: {count_params(self.model) / 1e6:.2f}M  "
               f"input: {hw}  classes: {self.spec['num_classes']}")
 
@@ -223,7 +239,7 @@ class MultiGridTrainer:
         agg, n = {}, 0
         for state, metrics in self._train_batches(state, train_step):
             n += 1
-            if n % 50 == 0 or n == 1:
+            if (n % 50 == 0 or n == 1) and dist.is_primary():
                 m = {k: float(v) for k, v in metrics.items()}
                 print(f'  epoch {epoch} step {n}/{len(self.train_gen)} '
                       f"loss={m['loss']:.4f} loc={m['location']:.4f} "
@@ -243,8 +259,9 @@ class MultiGridTrainer:
         avg = {k: v / max(n, 1) for k, v in agg.items()}
         avg['epoch_time_s'] = dt
         avg['steps'] = n
-        avg['images_per_sec'] = (n * self.train_gen.batch_size / dt
-                                 if dt > 0 else 0.0)
+        # global images (every rank), not this rank's share
+        bsz = self.train_gen.batch_size * dist.world_size()
+        avg['images_per_sec'] = n * bsz / dt if dt > 0 else 0.0
         return state, avg
 
     def _run_validation(self, state, eval_step):
@@ -277,7 +294,8 @@ class MultiGridTrainer:
         os.makedirs(log_dir, exist_ok=True)
         tb_cfg = self.callbacks_cfg.get('tensorboard', {}) or {}
         tb_writer = None
-        if tb_cfg:
+        primary = dist.is_primary()     # rank 0 owns every file written
+        if tb_cfg and primary:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 tb_writer = SummaryWriter(tb_cfg.get(
@@ -338,20 +356,27 @@ class MultiGridTrainer:
                 val_m = self._run_validation(state, eval_step)
                 record = {'epoch': epoch, **train_m, **val_m}
                 self.history.append(record)
-                with open(os.path.join(log_dir, 'history.jsonl'), 'a') as f:
-                    f.write(json.dumps(record) + '\n')
+                if primary:
+                    with open(os.path.join(log_dir, 'history.jsonl'),
+                              'a') as f:
+                        f.write(json.dumps(record) + '\n')
                 if tb_writer is not None:
                     for k, v in record.items():
                         if isinstance(v, (int, float)):
                             tb_writer.add_scalar(k, v, epoch)
                     tb_writer.flush()
+                # the metrics are global, so every rank takes the same
+                # checkpoint, stopping and plateau decisions
                 monitor = val_m.get('val_loss', train_m.get('loss', 0.0))
-                print(f"epoch {epoch}: loss={train_m.get('loss', 0):.4f} "
-                      f"val_loss={val_m.get('val_loss', float('nan')):.4f} "
-                      f"({train_m.get('images_per_sec', 0):.1f} img/s)")
+                if primary:
+                    print(f"epoch {epoch}: "
+                          f"loss={train_m.get('loss', 0):.4f} val_loss="
+                          f"{val_m.get('val_loss', float('nan')):.4f} "
+                          f"({train_m.get('images_per_sec', 0):.1f} img/s)")
                 save_freq = int(self.output_cfg.get('save_frequency', 1)
                                 or 1)
-                if epoch % save_freq == 0 or epoch + 1 == until_epoch:
+                if primary and (epoch % save_freq == 0
+                                or epoch + 1 == until_epoch):
                     ckpt.save(epoch, state,
                               {'val_loss': monitor,
                                **{k: v for k, v in train_m.items()
@@ -412,8 +437,10 @@ class MultiGridTrainer:
             print(f'Recalibrated BN statistics over {n_cal} batches')
 
         final_path = os.path.join(model_dir, 'final_model.msgpack')
-        save_params(final_path, model_bundle(self.model))
-        print(f'Saved final model to {final_path}')
+        if primary:
+            # the replicas are equal: rank 0 holds the whole model
+            save_params(final_path, model_bundle(self.model))
+            print(f'Saved final model to {final_path}')
         if tb_writer is not None:
             tb_writer.close()
         ckpt.close()

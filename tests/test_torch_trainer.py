@@ -9,7 +9,8 @@ Checked: history, checkpoints, the frozen first stage, EMA export and BN
 recalibration, resume (inside a stage, across the freeze boundary, and
 after the last epoch), reduce-on-plateau and early stopping, the export
 read by the JAX package's ``load_weights_flexible`` and served by the
-port's engine, the unported options raising before any step, and the CLI.
+port's engine, the unported options raising before any step (spatial
+partitioning; data parallel trains since it was ported), and the CLI.
 
 Against the JAX ``MultiGridTrainer`` on the same data and weights: each
 epoch's train and validation loss within 1e-3 relative (the batch holds the
@@ -225,10 +226,16 @@ def test_reduce_on_plateau_and_early_stopping(dataset, tmp_path, monkeypatch):
     # ported since (activation checkpointing): this trains
     pytest.param({'environment': {'remat': True}}, None,
                  id='change3-item 16'),
-    ({'environment': {'spatial_partition': 2}}, 'item 13'),
-    ({'environment': {'distributed': {'num_processes': 2}}}, 'item 13')])
+    # dp x sp spatial partitioning stays unported (item 18)
+    pytest.param({'environment': {'spatial_partition': 2}}, 'item 18',
+                 id='change4-item 13'),
+    # ported since (data parallel): a one-process group, named by
+    # torchrun's variables, trains
+    pytest.param({'environment': {'distributed': {
+        'enabled': True, 'num_processes': 1, 'process_id': 0}}}, None,
+                 id='change5-item 13')])
 def test_unported_options_raise_before_any_step(dataset, tmp_path, change,
-                                                item):
+                                                item, monkeypatch):
     cfg = _config(dataset, tmp_path)
     for block, values in change.items():
         if block == 'training':
@@ -237,7 +244,18 @@ def test_unported_options_raise_before_any_step(dataset, tmp_path, change,
             cfg[block] = dict(cfg.get(block, {}), **values)
     if item is None:
         cfg['training'].update(epochs=1, transfer_epochs=0)
-        history = MultiGridTrainer(cfg, device='cpu').train()
+        if 'distributed' in cfg.get('environment', {}):
+            import socket
+            with socket.socket() as s:
+                s.bind(('localhost', 0))
+                port = s.getsockname()[1]
+            monkeypatch.setenv('MASTER_ADDR', 'localhost')
+            monkeypatch.setenv('MASTER_PORT', str(port))
+        try:
+            history = MultiGridTrainer(cfg, device='cpu').train()
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
         assert len(history) == 1 and math.isfinite(history[0]['loss'])
         return
     with pytest.raises(NotImplementedError, match=item):
