@@ -125,6 +125,19 @@
     (8 frames, global b4): equal losses, one ``history.jsonl`` line and
     ``final_model.msgpack`` written by rank 0 alone.  The ranks are this
     script run with ``--dp-child``.
+12. Spatial partition: two gloo ranks on the one card as a dp1 x sp2
+    mesh (``parallel/spatial.py``: image rows banded, row exchanges with a
+    backward, global BatchNorm and loss), ``multigriddet_darknet`` at 608
+    (its stride-32 map's 19 rows band as 10 and 9), global b2, TF32 off,
+    the train config's loss, against one process on the whole canvas:
+    float64 loss terms, running statistics and parameters after two SGD
+    steps within ``SP_RTOL64``; the float32 first step's loss terms and
+    the infer step's gathered head maps within ``SP_RTOL``; the infer
+    step's ``pallas_fused`` detections (pop-max kernel, launches counted
+    on both ranks) from the float64 forward equal; a rank's step, the row
+    exchanges' share of it (forward and backward) and each rank's peak
+    memory against one process at the same global batch.  The ranks are
+    this script run with ``--sp-child``.
 
 ``--step-times CHECKOUT ...`` only times the darknet serve and train
 steps of the port in each checkout given, one process each, and exits:
@@ -2382,13 +2395,16 @@ def _init_gloo(rank, world, port):
 
 
 def dp_steps(dev, dtype, steps=DP_STEPS, timed=False,
-             arch='multigriddet_darknet', hw=DP_HW, lr=DP_LR):
+             arch='multigriddet_darknet', hw=DP_HW, lr=DP_LR, mesh=None,
+             global_b=DP_GLOBAL_B, frames_seed=SEED + 31, probe=None):
     """``steps`` SGD steps (learning rate ``lr``) of ``arch`` at ``hw`` in
-    ``dtype`` on this rank's share of each global batch of
-    ``DP_GLOBAL_B`` (all of it single-process), from seeded weights;
-    ``timed``: then the step's time and the gradient all-reduce's time
-    alone.  Returns the metrics, the final parameters and statistics on
-    the CPU, and the times."""
+    ``dtype`` on this rank's share of each global batch of ``global_b``
+    frames (all of it single-process; under a 2-D ``mesh`` the rank's
+    batch share at the whole canvas, banded by the step), from seeded
+    weights; ``timed``: then the step's time and the gradient all-reduce's
+    time alone; ``probe(state, step, batch)``: more times, merged in.
+    Returns the metrics, the final parameters and statistics on the CPU,
+    and the times."""
     import torch
     from multigriddet_tpu_torch.config import (build_model_from_config,
                                                loss_config_from_config)
@@ -2410,16 +2426,17 @@ def dp_steps(dev, dtype, steps=DP_STEPS, timed=False,
     load_flax_variables(model, *random_flax_variables(model, seed=SEED))
     model.to(dev, dtype).train()
     loss_cfg = loss_config_from_config(cfg)
-    mesh = make_mesh()
+    mesh = mesh or make_mesh()
     replicate(mesh, model)
     state = create_train_state(model, TrainOptimizer(
         torch.optim.SGD(model.parameters(), lr=lr)))
-    step = make_train_step(spec['anchors'], NUM_CLASSES, hw, loss_cfg)
-    _, canvases, boxes = train_frames(DP_GLOBAL_B * (steps + 1), SEED + 31,
+    step = make_train_step(spec['anchors'], NUM_CLASSES, hw, loss_cfg,
+                           mesh=mesh)
+    _, canvases, boxes = train_frames(global_b * (steps + 1), frames_seed,
                                       hw)
     batches = []
     for i in range(steps + 1):
-        sl = slice(i * DP_GLOBAL_B, (i + 1) * DP_GLOBAL_B)
+        sl = slice(i * global_b, (i + 1) * global_b)
         images, y_true, _ = _device_stage(
             tuple(torch.from_numpy(p) for p in rgb_to_yuv420_np(
                 canvases[sl])), boxes[sl], None, {'enabled': False},
@@ -2440,6 +2457,8 @@ def dp_steps(dev, dtype, steps=DP_STEPS, timed=False,
         params = state.optimizer.params
         times['grad_allreduce_ms'] = cuda_ms(
             lambda: all_reduce_grads(params), 3, 1)
+    if probe is not None:
+        times.update(probe(state, step, batches[-1]))
     return {'metrics': metrics, 'final': final, 'times': times}
 
 
@@ -2498,13 +2517,13 @@ def free_port():
         return s.getsockname()[1]
 
 
-def launch_ranks(mode, out, dev, world=2, root=None):
-    """``world`` ranks of ``mode`` on ``dev`` (``chip_smoke.py
-    --dp-child``), each awaited with ``DP_TIMEOUT``; any failure raises
+def launch_ranks(mode, out, dev, world=2, root=None, flag='--dp-child'):
+    """``world`` ranks of ``mode`` on ``dev`` (``chip_smoke.py --dp-child``,
+    or ``flag``), each awaited with ``DP_TIMEOUT``; any failure raises
     with its output."""
     port = free_port()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), '--dp-child', mode,
+        [sys.executable, os.path.abspath(__file__), flag, mode,
          str(rank), str(world), str(port), out, str(dev)]
         + ([root] if root else []),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -2520,7 +2539,7 @@ def launch_ranks(mode, out, dev, world=2, root=None):
                 p.communicate()
     for p, o in zip(procs, outs):
         if p.returncode != 0:
-            raise AssertionError(f'phase 11 {mode} rank failed:\n{o[-3000:]}')
+            raise AssertionError(f'{flag} {mode} rank failed:\n{o[-3000:]}')
 
 
 def rel_err(got, want):
@@ -2669,6 +2688,211 @@ def phase_data_parallel(dev, smi):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 12: spatial partition
+# ---------------------------------------------------------------------------
+
+# two gloo ranks on the card as one space group (dp 1 x sp 2) against one
+# process on the whole canvas: darknet at 608, whose stride-32 map has 19
+# rows (bands of 10 and 9), global b2, configs/train_config.yaml's loss
+# (option 2, consensus on), SGD.  Relative to max(1, |v|): float64 loss
+# terms, running statistics and parameters after SP_STEPS steps within
+# SP_RTOL64; the float32 (TF32 off) first step's loss terms and the infer
+# step's gathered float32 head maps within SP_RTOL; the infer step's
+# pallas_fused detections from the float64 forward equal (float32
+# forwards on bands and on the whole canvas may round differently, which
+# can reorder near-ties: printed, not held)
+SP_HW, SP_GLOBAL_B, SP_STEPS = (608, 608), 2, 2
+SP_RTOL, SP_RTOL64 = 1e-5, 1e-10
+SP_TIMED = 3
+SP_ARGS = dict(hw=SP_HW, global_b=SP_GLOBAL_B, frames_seed=SEED + 41)
+
+
+def sp_probe(state, step, batch):
+    """A step's time (``SP_TIMED`` steps after one), the gradient
+    all-reduce's alone, then the steps with the row exchanges timed (the
+    device synchronised around each, so the exchanges' seconds hold no
+    compute) and the step's peak memory."""
+    import torch
+    from multigriddet_tpu_torch.parallel import all_reduce_grads, spatial
+    ms = cuda_ms(lambda: step(state, *batch), SP_TIMED, 1)
+    params = state.optimizer.params
+    grad_ms = cuda_ms(lambda: all_reduce_grads(params), SP_TIMED, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spatial.STATS.reset()
+    spatial.STATS.timing = True
+    try:
+        timed_ms = cuda_ms(lambda: step(state, *batch), SP_TIMED, 0)
+    finally:
+        spatial.STATS.timing = False
+    st = spatial.STATS
+    return {'step_ms': ms, 'grad_allreduce_ms': grad_ms,
+            'timed_step_ms': timed_ms,
+            'exchange_fwd_ms': st.seconds['forward'] * 1e3 / SP_TIMED,
+            'exchange_bwd_ms': st.seconds['backward'] * 1e3 / SP_TIMED,
+            'exchanges': {k: v / SP_TIMED for k, v in st.calls.items()},
+            'exchange_mb': sum(st.bytes.values()) / SP_TIMED / 1e6,
+            'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def sp_infer(dev, mesh=None):
+    """The infer step (``pallas_fused``: the pop-max kernel) of
+    ``multigriddet_darknet`` at 608 on ``SP_GLOBAL_B`` letterboxed images,
+    from the phase's seeded weights: the float32 head maps (gathered over
+    the space group under a 2-D ``mesh``), and the detections of a float64
+    and a float32 forward, with the pop-max launches of those two calls
+    (the count zeroed just before and read just after)."""
+    import torch
+    from multigriddet_tpu_torch.config import build_model_from_config
+    from multigriddet_tpu_torch.models import (load_flax_variables,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.parallel.mesh import spatial_space
+    from multigriddet_tpu_torch.training import make_infer_step
+    from multigriddet_tpu_torch.training.steps import head_maps
+    cfg = train_config('', SP_HW, mixed=False)
+    images = torch.from_numpy(
+        letterboxed_batches(1, SEED + 42)[0][:SP_GLOBAL_B]).to(dev)
+    out, steps = {}, {}
+    for name, dtype in (('f32', torch.float32), ('f64', torch.float64)):
+        model, spec = build_model_from_config(cfg, dtype=dtype)
+        load_flax_variables(model, *random_flax_variables(model, seed=SEED))
+        model.to(dev, dtype).eval()
+        steps[name] = make_infer_step(model, spec['anchors'], SP_HW,
+                                      nms_backend='pallas_fused', mesh=mesh)
+        if name == 'f32':
+            with torch.no_grad():
+                out['maps'] = [m.cpu() for m in head_maps(
+                    model, images.float() / 255.0, spatial_space(mesh))]
+    cuda_nms.popmax_nms.launches = 0
+    for name in ('f64', 'f32'):
+        out[f'dets_{name}'] = [t.cpu() for t in steps[name](images)]
+    torch.cuda.synchronize()
+    out['launches'] = cuda_nms.popmax_nms.launches
+    return out
+
+
+def sp_child(mode, rank, world, port, out, device):
+    """A rank of phase 12, run as ``chip_smoke.py --sp-child``."""
+    import torch
+    import torch.distributed as dist
+    from multigriddet_tpu_torch.parallel import (local_device,
+                                                 maybe_initialize,
+                                                 make_mesh_2d)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _init_gloo(rank, world, port)
+    dev = torch.device(device)
+    maybe_initialize(_dist_cfg(rank, world, port), dev)
+    dev = local_device(dev)
+    mesh = make_mesh_2d(1, world)
+    res = {'mesh': mesh.shape,
+           'f64': dp_steps(dev, torch.float64, steps=SP_STEPS, mesh=mesh,
+                           **SP_ARGS)}
+    torch.cuda.empty_cache()
+    res['f32'] = dp_steps(dev, torch.float32, steps=1, mesh=mesh,
+                          probe=sp_probe, **SP_ARGS)
+    torch.cuda.empty_cache()
+    res['infer'] = sp_infer(dev, mesh)
+    torch.save(res, os.path.join(out, f'sp_{rank}.pt'))
+    dist.destroy_process_group()
+
+
+def phase_spatial(dev, smi):
+    """Phase 12: two gloo ranks on the one card as a (1, 2) mesh against
+    one process on the whole canvas (``multigriddet_darknet`` @608, TF32
+    off, global b2): float64 loss terms, statistics and parameters after
+    ``SP_STEPS`` SGD steps within ``SP_RTOL64``; the float32 first step's
+    loss terms and the infer step's gathered head maps within ``SP_RTOL``;
+    the infer step's float64 ``pallas_fused`` detections equal; a rank's
+    step, the exchanges' share of it and each rank's peak memory against
+    one process at the same global batch."""
+    import shutil
+    import torch
+    from multigriddet_tpu_torch.parallel.spatial import bands
+    t0 = time.perf_counter()
+    deep = [hi - lo for lo, hi in bands(SP_HW[0] // 32, 2)]
+    out = os.path.join(REPO, 'build', 'chip_smoke_sp')
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    try:
+        launch_ranks('steps', out, dev, flag='--sp-child')
+        ranks = [torch.load(os.path.join(out, f'sp_{r}.pt'))
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    r0, r1 = ranks
+    same = (r0['mesh'] == r1['mesh'] == {'batch': 1, 'space': 2}
+            and all(r0[p]['metrics'] == r1[p]['metrics']
+                    and all(torch.equal(v, r1[p]['final'][k])
+                            for k, v in r0[p]['final'].items())
+                    for p in ('f32', 'f64'))
+            and all(torch.equal(a, b) for k in ('maps', 'dets_f64',
+                                                'dets_f32')
+                    for a, b in zip(r0['infer'][k], r1['infer'][k])))
+    if not same:
+        raise AssertionError('the two sp ranks disagree')
+    one64 = dp_steps(dev, torch.float64, steps=SP_STEPS, **SP_ARGS)
+    torch.cuda.empty_cache()
+    one32 = dp_steps(dev, torch.float32, steps=1, probe=sp_probe, **SP_ARGS)
+    torch.cuda.empty_cache()
+    one_inf = sp_infer(dev)
+    e64, e32 = dp_errors(r0['f64'], one64), dp_errors(r0['f32'], one32)
+    map_rel = max(rel_err(a, b) for a, b in zip(r0['infer']['maps'],
+                                                one_inf['maps']))
+    dets = {k: all(torch.equal(a, b) for a, b in zip(r0['infer'][k],
+                                                     one_inf[k]))
+            for k in ('dets_f64', 'dets_f32')}
+    held64 = max(e64['loss_rel'], e64['stat_rel'], e64['param_rel'])
+    n_dets = int(one_inf['dets_f64'][3].sum())
+    if not (held64 <= SP_RTOL64 and e32['first_loss_rel'] <= SP_RTOL
+            and map_rel <= SP_RTOL and dets['dets_f64']
+            and e64['num_positives'] > 0 and r0['infer']['launches'] > 0):
+        raise AssertionError(
+            f'sp=2 vs one process: float64 loss, statistics, parameters '
+            f'{held64:.3e} (bound {SP_RTOL64}); float32 first-step loss '
+            f'terms {e32["first_loss_rel"]:.3e} (bound {SP_RTOL}); head '
+            f'maps {map_rel:.3e} (bound {SP_RTOL}); float64 detections '
+            f'equal: {dets["dets_f64"]}; pop-max launches '
+            f'{r0["infer"]["launches"]}')
+    rt, ot = r0['f32']['times'], one32['times']
+    report = {
+        'float64': e64, 'float32': e32, 'head_map_rel': map_rel,
+        'detections_equal': dets, 'detections': n_dets,
+        'rank_times': [r['f32']['times'] for r in ranks],
+        'single_times': ot,
+        'exchange_share': (rt['exchange_fwd_ms'] + rt['exchange_bwd_ms'])
+        / rt['timed_step_ms'],
+        'popmax_launches': r0['infer']['launches']
+        + r1['infer']['launches'],
+        'seconds': time.perf_counter() - t0}
+    log(f'[spatial partition] dp1 x sp2 gloo ranks on one card vs one '
+        f'process, multigriddet_darknet @{SP_HW[0]} (stride-32 bands of '
+        f'{deep[0]} and {deep[1]} rows), global b{SP_GLOBAL_B}: float64 '
+        f'after {SP_STEPS} SGD '
+        f'steps loss {e64["loss_rel"]:.3e}, statistics '
+        f'{e64["stat_rel"]:.3e}, parameters {e64["param_rel"]:.3e}; '
+        f'float32 first-step loss {e32["first_loss_rel"]:.3e}; infer head '
+        f'maps {map_rel:.3e}, pallas_fused detections equal in float64 '
+        f'{dets["dets_f64"]} ({n_dets} kept), in float32 '
+        f'{dets["dets_f32"]}; a rank\'s f32 step (TF32 off) '
+        f'{rt["step_ms"]:.1f} ms vs one process on b{SP_GLOBAL_B} '
+        f'{ot["step_ms"]:.1f} ms (the rank\'s gradient all-reduce '
+        f'{rt["grad_allreduce_ms"]:.1f} ms); row exchanges a step: '
+        f'{rt["exchanges"]["forward"]:.0f} forward, '
+        f'{rt["exchanges"]["backward"]:.0f} backward, '
+        f'{rt["exchange_mb"]:.1f} MB sent, {rt["exchange_fwd_ms"]:.1f} + '
+        f'{rt["exchange_bwd_ms"]:.1f} ms = {100 * report["exchange_share"]:.1f}'
+        f'% of the step timed with them ({rt["timed_step_ms"]:.1f} ms); '
+        f'peak memory a rank {ranks[0]["f32"]["times"]["peak_gib"]:.2f} / '
+        f'{ranks[1]["f32"]["times"]["peak_gib"]:.2f} GiB vs one process '
+        f'{ot["peak_gib"]:.2f} GiB; pop-max launches '
+        f'{report["popmax_launches"]}; {report["seconds"]:.1f} s; card: '
+        f'{smi}')
+    return report
+
+
 _STEP_TIMES_CHILD = """
 import importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -2725,12 +2949,18 @@ def main(argv=None) -> int:
                         'port in each checkout, in turn (e.g. parent, change, '
                         'change, parent), and exit')
     p.add_argument('--dp-child', nargs='+', help=argparse.SUPPRESS)
+    p.add_argument('--sp-child', nargs='+', help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dp_child:      # one rank of phase 11, started by the phase
         sys.path.insert(0, REPO)
         mode, rank, world, port, out, device, *root = args.dp_child
         dp_child(mode, int(rank), int(world), int(port), out, device,
                  *root)
+        return 0
+    if args.sp_child:      # one rank of phase 12, started by the phase
+        sys.path.insert(0, REPO)
+        mode, rank, world, port, out, device = args.sp_child
+        sp_child(mode, int(rank), int(world), int(port), out, device)
         return 0
 
     import torch
@@ -2777,18 +3007,22 @@ def main(argv=None) -> int:
         export = phase_export(dev, smi)
     with timer.phase('11 data parallel'):
         data_parallel = phase_data_parallel(dev, smi)
+    with timer.phase('12 spatial partition'):
+        spatial = phase_spatial(dev, smi)
     log('[phases]\n' + timer.summary())
 
     src = 'multigriddet_tpu_torch/csrc/nms.cu'
     replaces = {'popmax_nms': 'multigriddet_tpu/ops/pallas_nms.py:115',
                 'greedy_nms': 'multigriddet_tpu/ops/pallas_nms.py:34'}
     path_of = {'popmax_nms': 'pallas_fused', 'greedy_nms': 'pallas'}
-    # the serve run's launches, and the zoo's (one pop-max a served batch)
-    zoo_launches = {'popmax_nms': zoo['popmax_launches'], 'greedy_nms': 0}
+    # the serve run's launches, the zoo's (one pop-max a served batch) and
+    # the sp infer path's (both ranks)
+    more = {'popmax_nms': zoo['popmax_launches']
+            + spatial['popmax_launches'], 'greedy_nms': 0}
     kernels = [{'name': k['name'], 'route': 'cuda', 'source': src,
                 'replaces': replaces[k['name']],
                 'launches': (launches[path_of[k['name']]][k['name']]
-                             + zoo_launches[k['name']]),
+                             + more[k['name']]),
                 'max_abs_err': errs[k['name']], 'ms': k['ms'],
                 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
                 'bound_by': k['bound_by'], 'library_ms': None}
@@ -2805,6 +3039,7 @@ def main(argv=None) -> int:
                        'evaluate': evaluate, 'train': train,
                        'overfit_map': overfit, 'zoo': zoo,
                        'export': export, 'data_parallel': data_parallel,
+                       'spatial_partition': spatial,
                        'phase_seconds': timer.totals,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},

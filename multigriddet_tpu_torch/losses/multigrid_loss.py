@@ -27,6 +27,15 @@ the ``positives`` factor and the consensus normalizer sum over the ranks.
 Each rank's loss is then its share of the global loss, and the ranks'
 gradients and metrics are summed (``num_positives`` stays the rank's own
 count until the step sums the metrics).
+
+Under a spatial partition (``parallel/spatial.py``) the predictions are
+this rank's band of rows of each map while ``y_true`` is whole, as JAX
+places it ``P('batch')``: the per-cell terms read the band's rows of
+``y_true``, the ignore mask compares the band's boxes with the GT boxes
+of the whole image, the consensus patches gather their halo rows from the
+neighbouring bands (with gradients through the fetched predictions), the
+``batch`` and ``grid`` factors count the global batch at the global grid,
+and the positives and consensus normalizers sum each cell once.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch.nn.functional as F
 from ..device import to_device
 from ..ops.decode import xy_activation
 from ..ops.encoding import extract_center_gt_boxes
+from ..parallel import spatial
 from ..parallel.distributed import all_sum, world_size
 from .focal import (binary_cross_entropy_with_logits, sigmoid_focal_loss,
                     softmax_focal_loss)
@@ -101,11 +111,17 @@ def _norm_factor(cfg: LossConfig, batch: int, gh: int, gw: int,
     return torch.clamp_min(factor, 1.0)
 
 
-def _patches(x: torch.Tensor, k: int) -> torch.Tensor:
-    """SAME-padded k x k neighbourhoods: [B,H,W,C] -> [B,H,W,k*k,C]."""
+def _patches(x: torch.Tensor, k: int, halo: bool = False) -> torch.Tensor:
+    """SAME-padded k x k neighbourhoods: [B,H,W,C] -> [B,H,W,k*k,C].  With
+    ``halo``, ``x`` already holds its ``k // 2`` rows above and below
+    (a band's neighbours) and only the columns are padded."""
     r = k // 2
-    _, h, w, _ = x.shape
-    xp = F.pad(x, (0, 0, r, r, r, r))
+    if halo:
+        h, w = x.shape[1] - 2 * r, x.shape[2]
+        xp = F.pad(x, (0, 0, r, r))
+    else:
+        _, h, w, _ = x.shape
+        xp = F.pad(x, (0, 0, r, r, r, r))
     return torch.stack([xp[:, dy:dy + h, dx:dx + w, :]
                         for dy in range(k) for dx in range(k)], dim=3)
 
@@ -138,17 +154,21 @@ def _mask_from_iou(cfg, iou_all, y_true, object_mask, na):
 
 @torch.no_grad()
 def _ignore_mask(cfg: LossConfig, pred_xy, pred_wh, y_true, anchors,
-                 object_mask, stride_hw):
+                 object_mask, stride_hw, y_full=None, row0=0):
     """(ignore [B,gh,gw,1], assigned-anchor IoU [B,gh,gw,1], max IoU
-    [B,gh,gw,1]) against the GT boxes recovered from the centre cells."""
+    [B,gh,gw,1]) against the GT boxes recovered from the centre cells.
+    Under a spatial partition ``pred_xy`` .. ``object_mask`` are a band
+    starting at global row ``row0`` and ``y_full`` is the whole map."""
     b, gh, gw, _ = pred_xy.shape
+    y_full = y_true if y_full is None else y_full
     na = anchors.shape[0]
     sh, sw = stride_hw
     gt_boxes, gt_mask = extract_center_gt_boxes(
-        y_true, anchors, (sh * gh, sw * gw), cfg.max_gt_boxes)
+        y_full, anchors, (sh * y_full.shape[1], sw * gw), cfg.max_gt_boxes)
     dev = pred_xy.device
     cols = torch.arange(gw, dtype=torch.float32, device=dev)
-    rows = torch.arange(gh, dtype=torch.float32, device=dev)[:, None]
+    rows = torch.arange(row0, row0 + gh, dtype=torch.float32,
+                        device=dev)[:, None]
     pxy = xy_activation(pred_xy)
     px = (pxy[..., 0] + cols) * sw
     py = (pxy[..., 1] + rows) * sh
@@ -166,23 +186,31 @@ def _ignore_mask(cfg: LossConfig, pred_xy, pred_wh, y_true, anchors,
 
 @torch.no_grad()
 def _reference_compat_ignore_mask(cfg: LossConfig, pred_xy, pred_wh, y_true,
-                                  anchors, object_mask, stride_hw):
+                                  anchors, object_mask, stride_hw,
+                                  y_full=None, row0=0):
     """The TF reference's ignore mask with its three quirks (JAX
     ``multigrid_loss.py:175-225``): the transposed grid (row index added
-    to x), one "GT" per positive cell, and wh inflated by the stride."""
+    to x), one "GT" per positive cell, and wh inflated by the stride.
+    ``y_full`` and ``row0`` as in :func:`_ignore_mask`."""
     b, gh, gw, _ = pred_xy.shape
+    y_full = y_true if y_full is None else y_full
     na = anchors.shape[0]
     sh, sw = stride_hw
     dev = pred_xy.device
     scale = to_device(np.asarray([sw, sh], np.float32), dev)
-    rows = torch.arange(gh, dtype=torch.float32, device=dev)[:, None]
-    cols = torch.arange(gw, dtype=torch.float32, device=dev)
-    tcoords = torch.stack(torch.broadcast_tensors(rows, cols), dim=-1)
-    gxy = (y_true[..., 0:2] + tcoords) * scale
-    sel = torch.argmax(y_true[..., 5:5 + na], dim=-1)
-    gwh = torch.exp(y_true[..., 2:4]) * anchors[sel] * scale
+
+    def coords(lo, hi):
+        rows = torch.arange(lo, hi, dtype=torch.float32, device=dev)[:, None]
+        cols = torch.arange(gw, dtype=torch.float32, device=dev)
+        return torch.stack(torch.broadcast_tensors(rows, cols), dim=-1)
+
+    fcoords = coords(0, y_full.shape[1])
+    gxy = (y_full[..., 0:2] + fcoords) * scale
+    sel = torch.argmax(y_full[..., 5:5 + na], dim=-1)
+    gwh = torch.exp(y_full[..., 2:4]) * anchors[sel] * scale
     gt_boxes = torch.cat([gxy, gwh], dim=-1).reshape(b, -1, 4)
-    gt_mask = (y_true[..., 4] > 0.5).reshape(b, -1)
+    gt_mask = (y_full[..., 4] > 0.5).reshape(b, -1)
+    tcoords = coords(row0, row0 + gh)
     pxy = (xy_activation(pred_xy) + tcoords) * scale
     per_anchor = []
     for a in range(na):
@@ -194,32 +222,61 @@ def _reference_compat_ignore_mask(cfg: LossConfig, pred_xy, pred_wh, y_true,
     return _mask_from_iou(cfg, iou_all, y_true, object_mask, na)
 
 
-def _consensus_losses(cfg: LossConfig, pred_xy, pred_wh, pred_obj,
-                      pred_class, true_xy, object_mask, assigned_iou):
-    """Variance consensus over same-centre 3x3 groups."""
-    k = cfg.consensus_kernel_size
-    _, gh, gw, _ = pred_xy.shape
-    num_classes = pred_class.shape[-1]
-    dev = pred_xy.device
-
-    center_x = (true_xy[..., 0] >= 0.0) & (true_xy[..., 0] < 1.0)
-    center_y = (true_xy[..., 1] >= 0.0) & (true_xy[..., 1] < 1.0)
-    center_mask = (center_x & center_y).float()[..., None] * object_mask
-
-    rows = torch.arange(gh, dtype=torch.float32, device=dev)[:, None]
+def _grid(cfg: LossConfig, lo: int, hi: int, gw: int, dev) -> torch.Tensor:
+    """The cell coordinates of rows ``[lo, hi)``: ``[1, rows, gw, 2]``."""
+    rows = torch.arange(lo, hi, dtype=torch.float32, device=dev)[:, None]
     cols = torch.arange(gw, dtype=torch.float32, device=dev)
     rows, cols = torch.broadcast_tensors(rows, cols)
     if cfg.reference_compat:
         # the reference's transposed grid: only diagonal neighbours of a
         # box share a decoded centre, so its groups differ
-        grid = torch.stack([rows, cols], dim=-1)[None]
-    else:
-        grid = torch.stack([cols, rows], dim=-1)[None]
-    true_centers = true_xy + grid
+        return torch.stack([rows, cols], dim=-1)[None]
+    return torch.stack([cols, rows], dim=-1)[None]
 
-    mask_p = _patches(object_mask, k)
-    iou_p = _patches(assigned_iou, k)
-    center_p = _patches(true_centers, k)
+
+def _consensus_losses(cfg: LossConfig, pred_xy, pred_wh, pred_obj,
+                      pred_class, true_xy, object_mask, assigned_iou,
+                      y_full=None, row0=0):
+    """Variance consensus over same-centre 3x3 groups.  Under a spatial
+    partition the inputs are a band from global row ``row0`` of maps whose
+    whole targets are ``y_full``; the patches' halo rows come from the
+    whole targets and, for the predictions, from the neighbouring bands
+    (one exchange, gradients flowing back through the fetched rows)."""
+    k = cfg.consensus_kernel_size
+    _, gh, gw, _ = pred_xy.shape
+    num_classes = pred_class.shape[-1]
+    dev = pred_xy.device
+    halo = y_full is not None
+
+    center_x = (true_xy[..., 0] >= 0.0) & (true_xy[..., 0] < 1.0)
+    center_y = (true_xy[..., 1] >= 0.0) & (true_xy[..., 1] < 1.0)
+    center_mask = (center_x & center_y).float()[..., None] * object_mask
+
+    true_centers = true_xy + _grid(cfg, row0, row0 + gh, gw, dev)
+    values = {'box': torch.cat([pred_xy, pred_wh], dim=-1),
+              'obj': torch.sigmoid(pred_obj),
+              'cls': torch.sigmoid(pred_class)}
+
+    if halo:
+        r, rows = k // 2, y_full.shape[1]
+        f_omask = (y_full[..., 4:5] > 0.5).to(y_full.dtype)
+        f_centers = y_full[..., 0:2] + _grid(cfg, 0, rows, gw, dev)
+        # the targets' halo: SAME zeros outside the map, as the whole
+        # map's patches pad them
+        ext = F.pad(torch.cat([f_omask, f_centers], -1),
+                    (0, 0, 0, 0, r, r))[:, row0:row0 + gh + 2 * r]
+        mask_p = _patches(ext[..., 0:1], k, True)
+        center_p = _patches(ext[..., 1:3], k, True)
+        pext = spatial.halo_rows(torch.cat(
+            [values['box'], values['obj'], values['cls'], assigned_iou], -1),
+            rows, r)
+        iou_p = _patches(pext[..., -1:], k, True)
+        values = {'box': pext[..., 0:4], 'obj': pext[..., 4:5],
+                  'cls': pext[..., 5:5 + num_classes]}
+    else:
+        mask_p = _patches(object_mask, k)
+        iou_p = _patches(assigned_iou, k)
+        center_p = _patches(true_centers, k)
 
     same_center = (torch.amax(torch.abs(center_p - true_centers[:, :, :, None]),
                               dim=-1, keepdim=True)
@@ -236,20 +293,19 @@ def _consensus_losses(cfg: LossConfig, pred_xy, pred_wh, pred_obj,
     normalizer = torch.clamp_min(all_sum(torch.sum(center_mask)), 1.0)
 
     def variance(x):
-        xp = _patches(x, k)
+        xp = _patches(x, k, halo)
         consensus = torch.sum(w * xp, dim=3)
         if cfg.consensus_stop_gradient:
             consensus = consensus.detach()
         return torch.square(xp - consensus[:, :, :, None])
 
-    box = torch.cat([pred_xy, pred_wh], dim=-1)
-    box_d2 = torch.sum(variance(box), dim=-1)
+    box_d2 = torch.sum(variance(values['box']), dim=-1)
     coord_var = torch.sum(w_s * box_d2) / normalizer
 
-    obj_d2 = variance(torch.sigmoid(pred_obj))[..., 0]
+    obj_d2 = variance(values['obj'])[..., 0]
     obj_var = torch.sum(w_s * obj_d2) / normalizer
 
-    cls_d2 = variance(torch.sigmoid(pred_class))
+    cls_d2 = variance(values['cls'])
     cls_var = torch.sum(w_s[..., None] * cls_d2) / (normalizer * num_classes)
     return coord_var, obj_var, cls_var
 
@@ -271,8 +327,11 @@ def multigrid_loss(y_pred: Sequence[torch.Tensor],
     copies); ``strides``: per-layer strides (default: ``input_hw`` over the
     grid).  Returns (scalar total, metrics dict of scalars).
     """
-    # the global batch under data parallel (``parallel.distributed``)
-    batch = y_pred[0].shape[0] * world_size()
+    # the global batch under data parallel (``parallel.distributed``):
+    # a space group's ranks hold the same images
+    part = spatial.current()
+    batch = y_pred[0].shape[0] * world_size() // (
+        part.space.size if part is not None else 1)
     dev = y_pred[0].device
     if class_weights is None:
         class_weights = torch.ones((num_classes,), device=dev)
@@ -292,7 +351,18 @@ def multigrid_loss(y_pred: Sequence[torch.Tensor],
         if not isinstance(anc, torch.Tensor):
             anc = to_device(np.asarray(anc, np.float32), dev)
         na = anc.shape[0]
-        _, gh, gw, _ = pred.shape
+        _, gh, gw, _ = true.shape           # the whole map's grid
+        band = {}
+        if part is not None:
+            # this rank's band of rows; y_true stays whole for the GT
+            # boxes and the consensus halo
+            row0, row1 = part.band(gh)
+            if pred.shape[1] != row1 - row0:
+                raise ValueError(f'scale {l}: a band of {pred.shape[1]} '
+                                 f'rows; rank {part.space.index} holds rows '
+                                 f'[{row0}, {row1}) of {gh}')
+            band = dict(y_full=true, row0=row0)
+            true = true[:, row0:row1]
         if strides is not None:
             stride_hw = (float(strides[l]), float(strides[l]))
         else:
@@ -315,7 +385,7 @@ def multigrid_loss(y_pred: Sequence[torch.Tensor],
                    else _ignore_mask)
         ignore, assigned_iou, max_iou = mask_fn(
             cfg, pred_xy.detach(), pred_wh.detach(), true, anc, object_mask,
-            stride_hw)
+            stride_hw, **band)
 
         # -------- localization --------
         if cfg.loss_option in (1, 2):
@@ -381,7 +451,7 @@ def multigrid_loss(y_pred: Sequence[torch.Tensor],
         if cfg.use_consensus_loss:
             cc, co, ccls = _consensus_losses(
                 cfg, pred_xy, pred_wh, pred_obj, pred_class, true_xy,
-                object_mask, assigned_iou)
+                object_mask, assigned_iou, **band)
             totals['consensus_coord'] = totals['consensus_coord'] + cc
             totals['consensus_obj'] = totals['consensus_obj'] + co
             totals['consensus_class'] = totals['consensus_class'] + ccls

@@ -17,7 +17,10 @@ backbone, through non-reentrant ``torch.utils.checkpoint``:
   again in the backward.
 
 Recomputes run under ``layers.no_stat_updates``, so train-mode BatchNorm
-moves its running statistics once a step, in the first forward.  As in
+moves its running statistics once a step, in the first forward, and under
+the spatial partition of the forward they repeat (``parallel/spatial.py``):
+a recompute repeats its row exchanges and BatchNorm all-reduces, every
+rank in the same order.  As in
 JAX only the presets built by ``_build`` read ``remat``: the PANet preset
 and ``build_custom`` ignore it.
 """

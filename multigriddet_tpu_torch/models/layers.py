@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import spatial
 from ..parallel.distributed import all_mean
 
 BN_EPSILON = 1e-3
@@ -80,8 +81,16 @@ def selective_remat():
 
 def recompute_contexts():
     """``context_fn`` of ``torch.utils.checkpoint``: the forward runs as
-    it is; its recompute in the backward moves no running statistic."""
-    return contextlib.nullcontext(), no_stat_updates()
+    it is; its recompute in the backward moves no running statistic and
+    runs under the spatial partition that was active in the forward
+    (``parallel/spatial.py``), whichever thread runs it."""
+    return contextlib.nullcontext(), _recompute(spatial.current())
+
+
+@contextlib.contextmanager
+def _recompute(part):
+    with no_stat_updates(), spatial.active(part):
+        yield
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -122,7 +131,10 @@ def auto_name(parent: nn.Module, child: nn.Module) -> str:
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample of an NCHW tensor."""
+    """Nearest-neighbour 2x upsample of an NCHW tensor (under a spatial
+    partition, re-banded onto the finer level's band)."""
+    if spatial.current() is not None:
+        return spatial.upsample2x(x)
     return F.interpolate(x, scale_factor=2, mode='nearest')
 
 
@@ -134,11 +146,17 @@ def batch_norm(y: torch.Tensor, bn: nn.BatchNorm2d, train: bool,
 
     Under data parallel (``parallel.distributed``), the batch moments are
     averaged over the ranks with an autograd-aware all-reduce, so they
-    are the global batch's (flax's ``axis_name`` pmean)."""
+    are the global batch's (flax's ``axis_name`` pmean).  Under a spatial
+    partition the ranks hold bands of uneven height, so the sums of ``y``
+    and ``y^2`` are all-reduced and divided by the global count
+    (``spatial.global_moments``)."""
     yf = y if y.dtype == torch.float64 else y.float()
     if train:
-        mean, mean2 = all_mean(yf.mean((0, 2, 3)),
-                               yf.square().mean((0, 2, 3)))
+        if spatial.current() is not None:
+            mean, mean2 = spatial.global_moments(yf)
+        else:
+            mean, mean2 = all_mean(yf.mean((0, 2, 3)),
+                                   yf.square().mean((0, 2, 3)))
         var = torch.clamp_min(mean2 - mean.square(), 0.0)
         if not getattr(_LOCAL, 'frozen_stats', False):
             with torch.no_grad():
@@ -197,10 +215,10 @@ class ConvBN(nn.Module):
                 train: Optional[bool] = None) -> torch.Tensor:
         train = self.training if train is None else train
         if self.strides == 2:
-            x = F.pad(x, (1, 0, 1, 0))
+            x = spatial.pad(x, (1, 0, 1, 0), self.kernel, 2)
         else:
             p = self.kernel // 2
-            x = F.pad(x, (p, p, p, p))
+            x = spatial.pad(x, (p, p, p, p), self.kernel, 1)
         y = F.conv2d(x.to(self.dtype), self.Conv_0.weight.to(self.dtype),
                      stride=self.strides)
         return norm_act(y, self.BatchNorm_0, train, self.bn_momentum,
@@ -230,10 +248,10 @@ class SeparableConvBN(nn.Module):
                 train: Optional[bool] = None) -> torch.Tensor:
         train = self.training if train is None else train
         if self.strides == 2:
-            x = F.pad(x, (1, 0, 1, 0))
+            x = spatial.pad(x, (1, 0, 1, 0), self.kernel, 2)
         else:
             p = self.kernel // 2
-            x = F.pad(x, (p, p, p, p))
+            x = spatial.pad(x, (p, p, p, p), self.kernel, 1)
         w = self.Conv_0.weight.to(self.dtype)
         y = F.conv2d(x.to(self.dtype), w, stride=self.strides,
                      groups=w.shape[0])
@@ -249,9 +267,19 @@ def spp(x: torch.Tensor, pool_sizes: Sequence[int] = (5, 9, 13)
     """Spatial pyramid pooling of an NCHW tensor: stride-1 max-pools with
     SAME padding (max-pooling pads with -inf), concatenated as
     ``pools[::-1] + [x]`` -- 13, 9, 5, then the identity (JAX
-    ``layers.py:240-252``)."""
-    pools = [F.max_pool2d(x, k, stride=1, padding=k // 2)
-             for k in pool_sizes]
+    ``layers.py:240-252``).  Under a spatial partition one exchange
+    gathers the widest pool's halo rows (-inf outside the map) and each
+    pool runs VALID along the rows on its share of them."""
+    if spatial.current() is None:
+        pools = [F.max_pool2d(x, k, stride=1, padding=k // 2)
+                 for k in pool_sizes]
+    else:
+        r = max(pool_sizes) // 2
+        xe = spatial.pad(x, (0, 0, r, r), 2 * r + 1, 1, float('-inf'))
+        h = x.shape[2]
+        pools = [F.max_pool2d(xe.narrow(2, r - k // 2, h + 2 * (k // 2)),
+                              k, stride=1, padding=(0, k // 2))
+                 for k in pool_sizes]
     return torch.cat(pools[::-1] + [x], dim=1)
 
 

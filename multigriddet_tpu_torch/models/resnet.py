@@ -12,6 +12,10 @@ Three departures from ``ConvBN`` follow the flax model:
   that is 0 top/left and 1 bottom/right, neither torch's symmetric
   ``padding=1`` nor ``ConvBN``'s top/left pad; the 7x7 stem pads (3, 3);
 * the stem max-pool is ``SAME`` 3x3 at stride 2, padded with -inf.
+
+Under a spatial partition (``parallel/spatial.py``) the SAME pads are
+those of the whole map, read from the level's global rows: the bottom
+pad reaches only the last band.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .layers import linear, norm_act
 from .registry import register_backbone
 
@@ -39,12 +44,15 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 def pad_same(x: torch.Tensor, kernel: int, stride: int,
              value: float = 0.0) -> torch.Tensor:
-    """Pad an NCHW tensor as flax ``padding='SAME'`` does."""
-    top, bottom = same_padding(x.shape[2], kernel, stride)
+    """Pad an NCHW tensor as flax ``padding='SAME'`` does, ahead of a
+    VALID op of ``kernel`` and ``stride`` (under a spatial partition, with
+    the rows this rank's output band needs)."""
+    top, bottom = same_padding(spatial.rows_of(x), kernel, stride)
     left, right = same_padding(x.shape[3], kernel, stride)
-    if top == bottom == left == right == 0:
+    if top == bottom == left == right == 0 and spatial.current() is None:
         return x
-    return F.pad(x, (left, right, top, bottom), value=value)
+    return spatial.pad(x, (left, right, top, bottom), kernel, stride,
+                       value)
 
 
 class _RNConvBN(nn.Module):
@@ -129,14 +137,19 @@ class ResNet(nn.Module):
                 k, cin = k + 1, filters * 4
             self.stage_ends.append(k)
 
-    def forward(self, x: torch.Tensor, train: Optional[bool] = None):
-        train = self.training if train is None else train
-        x = F.pad(x, (3, 3, 3, 3))
+    def stem(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """The 7x7 stride-2 conv (pad 3) + BatchNorm + ReLU, then the SAME
+        3x3 stride-2 max-pool."""
+        x = spatial.pad(x, (3, 3, 3, 3), 7, 2)
         y = F.conv2d(x.to(self.dtype), self.Conv_0.weight.to(self.dtype),
                      stride=2)
         x = norm_act(y, self.BatchNorm_0, train, RN_MOMENTUM, F.relu,
                      self.dtype)
-        x = F.max_pool2d(pad_same(x, 3, 2, value=float('-inf')), 3, 2)
+        return F.max_pool2d(pad_same(x, 3, 2, value=float('-inf')), 3, 2)
+
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None):
+        train = self.training if train is None else train
+        x = self.stem(x, train)
         taps = []
         for k in range(self.stage_ends[-1]):
             x = getattr(self, f'_Bottleneck_{k}')(x, train)

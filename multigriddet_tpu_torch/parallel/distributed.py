@@ -17,6 +17,13 @@ the same global-batch semantics explicit:
   :func:`all_reduce_grads`), and the steps sum their metrics
   (:func:`all_sum_metrics`), so every rank reports the global values.
 
+Under a 2-D ``(dp, sp)`` mesh (``parallel/mesh.py``, spatial partitioning
+in ``parallel/spatial.py``) the lines and the batch split over ``dp``
+(:func:`shard_lines`, :func:`local_batch_size` given the mesh), BatchNorm
+all-reduces sums and counts instead of :func:`all_mean`'s per-rank means
+(the bands are uneven), and the world sums above stay right: each rank's
+loss is its band's share of the global loss.
+
 Config (all optional, ``environment.distributed``)::
 
     environment:
@@ -36,7 +43,7 @@ follows the device: NCCL for CUDA, gloo for the CPU.  Each rank trains on
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -112,23 +119,32 @@ def local_device(device: torch.device) -> torch.device:
     return torch.device('cuda', local)
 
 
-def shard_lines(lines: Sequence[str]) -> List[str]:
-    """This process's equal-count shard of the annotation lines.
+def _batch_axis(mesh) -> Tuple[int, int]:
+    """(shards, this process's shard) of the batch: the world's ranks, or
+    the mesh's batch axis (a 2-D mesh's space group shares one shard)."""
+    if mesh is None:
+        return world_size(), process_index()
+    return mesh.dp, mesh.batch_index
+
+
+def shard_lines(lines: Sequence[str], mesh=None) -> List[str]:
+    """This process's equal-count shard of the annotation lines, split
+    over the ranks or over ``mesh``'s batch axis (the ranks of a space
+    group read the same lines).
 
     Every process must run the same number of steps an epoch or the
     collectives deadlock, so the tail ``len % nproc`` lines are dropped."""
-    n = world_size()
+    n, pid = _batch_axis(mesh)
     if n <= 1:
         return list(lines)
     per = len(lines) // n
-    pid = process_index()
     return list(lines[pid * per:(pid + 1) * per])
 
 
-def local_batch_size(global_batch: int) -> int:
-    """Per-process batch, so that the shards make up the configured
-    global batch."""
-    n = world_size()
+def local_batch_size(global_batch: int, mesh=None) -> int:
+    """Per-process batch, so that the shards over the ranks (or over
+    ``mesh``'s batch axis) make up the configured global batch."""
+    n, _ = _batch_axis(mesh)
     if global_batch % n != 0:
         raise ValueError(f'training.batch_size={global_batch} must divide '
                          f'evenly over {n} processes')

@@ -9,7 +9,12 @@ reads the moments directly: with the momentum set to 0 for the sweep, a
 train-mode forward leaves exactly the batch's moments in the running
 buffers.  Under data parallel those are the global batch's moments
 (``models/layers.py`` ``batch_norm`` averages them over the ranks), so
-every rank derives the same statistics.
+every rank derives the same statistics.  Under a 2-D mesh that bands the
+rows (``mesh``), each batch is the rank's at the whole canvas and the
+forward runs on its band under a spatial partition (``parallel/
+spatial.py``): BatchNorm's moments are then the global batch's at the
+whole canvas, as the JAX sweep over batches placed ``P('batch',
+'space')`` gives them.
 """
 
 from __future__ import annotations
@@ -20,15 +25,18 @@ import torch
 from torch import nn
 
 from ..models.layers import ConvBN
+from ..parallel import spatial
+from ..parallel.mesh import spatial_space
 
 
 @torch.no_grad()
 def calibrate_batch_stats(model: nn.Module, batches: Iterable,
-                          max_batches: int = 32) -> nn.Module:
+                          max_batches: int = 32, mesh=None) -> nn.Module:
     """Recompute the running statistics of every BatchNorm of ``model`` in
     place over at most ``max_batches`` of ``batches`` (image tensors
     ``[B, H, W, 3]`` in [0, 1], or tuples whose first element is one).
     The model keeps its statistics when ``batches`` is empty."""
+    space = spatial_space(mesh)
     blocks = [m for m in model.modules() if isinstance(m, ConvBN)]
     momenta = [m.bn_momentum for m in blocks]
     sums, n = None, 0
@@ -37,7 +45,8 @@ def calibrate_batch_stats(model: nn.Module, batches: Iterable,
             m.bn_momentum = 0.0
         for item in batches:
             images = item[0] if isinstance(item, (tuple, list)) else item
-            model(images, train=True)
+            with spatial.partitioned(space, images.shape[1]):
+                model(spatial.band_of(images, space), train=True)
             stats = [(m.BatchNorm_0.running_mean.clone(),
                       m.BatchNorm_0.running_var.clone()) for m in blocks]
             sums = stats if sums is None else [

@@ -14,7 +14,10 @@ micro-batches are averaged (Welford, as ``optax.MultiSteps``) into one
 update per ``k`` calls, the schedule counting updates, not calls.  Under
 data parallel (``parallel.distributed``) it sums the gradients over the
 ranks once per update, just before the update: each rank's loss is its
-share of the global loss, so the sum is the global gradient.
+share of the global loss, so the sum is the global gradient.  Under a
+2-D ``(dp, sp)`` mesh the same world sum holds: each rank's loss is its
+band's share, and the row exchanges' backward has already returned each
+fetched row's gradient to its owner.
 """
 
 from __future__ import annotations

@@ -16,6 +16,15 @@ NMS run in float32.
 
 Under data parallel (``parallel.distributed``) the train and eval steps
 return metrics summed over the ranks: the global loss terms.
+
+Every step takes an optional ``mesh`` (``parallel/mesh.py``).  Under a 2-D
+mesh that bands the rows (``sp > 1``) a step takes this rank's images at
+the whole canvas (what every rank of its space group holds) and the whole
+``y_true``, keeps its band of rows (JAX places images ``P('batch',
+'space')`` and ``y_true`` ``P('batch')``), and runs the forward, the loss
+and the backward under a ``parallel.spatial`` partition.  The infer step
+then gathers the three head maps over the space group and decodes and
+runs NMS on every rank (JAX ``make_infer_step(mesh=...)``).
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ from ..losses import LossConfig, multigrid_loss
 from ..ops.decode import decode_for_nms
 from ..ops.nms import NEG_INF, batched_nms, gather_rows, top_k
 from ..ops.yuv import yuv420_to_rgb
+from ..parallel import spatial
 from ..parallel.distributed import all_sum_metrics
+from ..parallel.mesh import spatial_space
 
 
 class _OnDevice:
@@ -78,20 +89,23 @@ def ema_update(ema: Dict[str, torch.Tensor], model, decay: float):
 
 def _build_train_core(anchors, num_classes, loss_cfg=LossConfig(),
                       class_weights=None, strides=(32, 16, 8),
-                      freeze_level=0, ema_decay=None):
+                      freeze_level=0, ema_decay=None, mesh=None):
     """(state, images, y_true) -> (state, metrics), shared by
     :func:`make_train_step` and :func:`make_fused_train_step`."""
     consts = _OnDevice(anchors, class_weights)
+    space = spatial_space(mesh)
 
     def step(state, images: torch.Tensor, y_true):
         model, opt = state.model, state.optimizer
         anc, cw = consts(images.device)
-        outs = train_forward(model, images, freeze_level)
-        total, metrics = multigrid_loss(
-            outs, list(y_true), anc, num_classes, tuple(images.shape[1:3]),
-            loss_cfg, cw, strides=strides)
-        opt.zero_grad()
-        total.backward()
+        with spatial.partitioned(space, images.shape[1]):
+            outs = train_forward(model, spatial.band_of(images, space),
+                                 freeze_level)
+            total, metrics = multigrid_loss(
+                outs, list(y_true), anc, num_classes,
+                tuple(images.shape[1:3]), loss_cfg, cw, strides=strides)
+            opt.zero_grad()
+            total.backward()
         opt.step()
         if ema_decay is not None and state.ema_params is not None:
             ema_update(state.ema_params, model, ema_decay)
@@ -109,7 +123,8 @@ def make_train_step(anchors: Sequence[np.ndarray], num_classes: int,
                     class_weights=None,
                     strides: Tuple[int, ...] = (32, 16, 8),
                     freeze_level: int = 0,
-                    ema_decay: Optional[float] = None) -> Callable:
+                    ema_decay: Optional[float] = None,
+                    mesh=None) -> Callable:
     """``step(state, images [B, H, W, 3] f32 in [0, 1], y_true) -> (state,
     metrics)``: one update of ``state.model`` through ``state.optimizer``
     (whose parameters must follow the freeze level, see
@@ -118,10 +133,11 @@ def make_train_step(anchors: Sequence[np.ndarray], num_classes: int,
     accumulation the optimizer applies one update per k calls, while the
     BatchNorm statistics and the EMA move on every call, as under
     ``optax.MultiSteps``.  ``input_hw`` is the nominal canvas; the loss
-    reads the canvas from the images (multi-scale)."""
+    reads the canvas from the images (multi-scale).  ``mesh``: see the
+    module docstring."""
     del input_hw
     return _build_train_core(anchors, num_classes, loss_cfg, class_weights,
-                             strides, freeze_level, ema_decay)
+                             strides, freeze_level, ema_decay, mesh)
 
 
 def make_fused_train_step(anchors: Sequence[np.ndarray], num_classes: int,
@@ -132,7 +148,7 @@ def make_fused_train_step(anchors: Sequence[np.ndarray], num_classes: int,
                           freeze_level: int = 0,
                           ema_decay: Optional[float] = None,
                           multi_anchor_assign: bool = False,
-                          train_aug: bool = True):
+                          train_aug: bool = True, mesh=None):
     """The input stage and the train step in one call.
 
     Returns ``(host_step, bank_step)``: ``host_step(state, parts, boxes,
@@ -143,11 +159,16 @@ def make_fused_train_step(anchors: Sequence[np.ndarray], num_classes: int,
     then the train step.  ``bank_step(state, banks, idx, boxes,
     generator)`` does the same from the rows ``idx`` of the device image
     bank (``banks``: the per-part bank tuple), gathered on the device.
+
+    Under a 2-D ``mesh`` the ranks of a space group run the device stage
+    alike (the same images and the same ``generator`` draws), and the
+    train step keeps each rank's band of the stage's pixels and the whole
+    ``y_true``.
     """
     from ..data.pipeline import _device_stage, _device_stage_bank
     anchors = [np.asarray(a, np.float32) for a in anchors]
     core = _build_train_core(anchors, num_classes, loss_cfg, class_weights,
-                             strides, freeze_level, ema_decay)
+                             strides, freeze_level, ema_decay, mesh)
 
     def host_step(state, parts, boxes, generator=None):
         if not isinstance(parts, (tuple, list)):
@@ -174,18 +195,21 @@ def make_eval_step(anchors: Sequence[np.ndarray], num_classes: int,
                    input_hw: Tuple[int, int],
                    loss_cfg: LossConfig = LossConfig(),
                    class_weights=None,
-                   strides: Tuple[int, ...] = (32, 16, 8)) -> Callable:
+                   strides: Tuple[int, ...] = (32, 16, 8),
+                   mesh=None) -> Callable:
     """``step(state, images, y_true) -> metrics``: the inference-mode
     forward (running BatchNorm statistics) and the loss metrics."""
     consts = _OnDevice(anchors, class_weights)
+    space = spatial_space(mesh)
 
     @torch.no_grad()
     def step(state, images: torch.Tensor, y_true):
         anc, cw = consts(images.device)
-        outs = state.model(images, train=False)
-        total, metrics = multigrid_loss(
-            outs, list(y_true), anc, num_classes, input_hw, loss_cfg, cw,
-            strides=strides)
+        with spatial.partitioned(space, images.shape[1]):
+            outs = state.model(spatial.band_of(images, space), train=False)
+            total, metrics = multigrid_loss(
+                outs, list(y_true), anc, num_classes, input_hw, loss_cfg,
+                cw, strides=strides)
         metrics = dict(metrics)
         metrics['loss'] = total
         return all_sum_metrics(metrics)
@@ -193,14 +217,27 @@ def make_eval_step(anchors: Sequence[np.ndarray], num_classes: int,
     return step
 
 
+def head_maps(model, images: torch.Tensor, space=None):
+    """The model's three head maps of ``images``; with a ``space`` group
+    (``parallel/spatial.py``), the forward runs on this rank's band and
+    the whole maps are gathered on every rank of the group."""
+    if space is None:
+        return model(images)
+    with spatial.partitioned(space, images.shape[1]):
+        outs = model(spatial.band_of(images, space))
+        return [spatial.gather_level(y, spatial.rows_of(y, 1))
+                for y in outs]
+
+
 def candidate_pool(model, images: torch.Tensor, anchors: Sequence,
-                   input_hw: Tuple[int, int]):
-    """Forward + compact decode of float images ``[B, H, W, 3]`` in [0, 1].
+                   input_hw: Tuple[int, int], space=None):
+    """Forward + compact decode of float images ``[B, H, W, 3]`` in [0, 1]
+    (``space``: :func:`head_maps`).
 
     Returns the NMS pool ``(boxes [B, N, 4] top-left canvas pixels,
     scores [B, N], classes [B, N] int32)``, one candidate per grid cell.
     """
-    outs = model(images)
+    outs = head_maps(model, images, space)
     boxes, scores, classes = decode_for_nms(outs, anchors, input_hw)
     scale = torch.tensor([input_hw[1], input_hw[0], input_hw[1],
                           input_hw[0]], dtype=torch.float32,
@@ -222,17 +259,18 @@ def make_infer_fn(model, anchors: Sequence[np.ndarray],
                   nms_backend: str = 'xla',
                   use_wbf: bool = False,
                   pack_outputs: bool = False,
-                  link_format: str = 'rgb') -> Callable:
+                  link_format: str = 'rgb', mesh=None) -> Callable:
     """The chain of :func:`make_infer_step` without its
     ``torch.inference_mode`` wrapper: what ``inference/export.py`` traces
     (under ``torch.no_grad``, the model in eval mode)."""
     anchors = [np.asarray(a, np.float32) for a in anchors]
+    space = spatial_space(mesh)
     if link_format not in ('rgb', 'yuv420'):
         raise ValueError(f'unknown link_format {link_format!r}')
 
     def _forward_chain(images):
         tl, scores, classes = candidate_pool(model, images, anchors,
-                                             input_hw)
+                                             input_hw, space)
         if use_wbf:
             sc = torch.where(scores >= confidence, scores,
                              torch.tensor(NEG_INF, device=scores.device))
@@ -270,7 +308,9 @@ def make_infer_step(model, anchors: Sequence[np.ndarray],
     ``nms_threshold`` 0.45, ``nms_method`` ``'diou'``, ``use_iol`` True,
     ``max_boxes`` 100, ``pre_nms_top_k`` 1024, ``class_aware`` False,
     ``nms_backend`` ``'xla'``, ``use_wbf``, ``pack_outputs``,
-    ``link_format``.
+    ``link_format``, ``mesh`` (a 2-D mesh: the forward on the bands, the
+    head maps gathered, decode and NMS on every rank; the images are the
+    rank's at the whole canvas).
 
     ``link_format='rgb'`` gives ``step(images)`` for ``[B, H, W, 3]``
     uint8 (divided by 255 on the device) or float images;

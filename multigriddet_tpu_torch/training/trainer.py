@@ -23,9 +23,16 @@ GPU (``parallel/distributed.py``; ``torchrun --nproc_per_node=N``):
 ``training.batch_size`` is the global batch, each rank reads an equal
 shard of the lines after a seeded shuffle, BatchNorm statistics, loss
 normalizers, gradients and metrics are global, and only rank 0 writes
-logs, checkpoints and ``final_model.msgpack``.  Spatial partitioning
-(``environment.spatial_partition > 1``) raises ``NotImplementedError``
-(ROADMAP item 18).  ``environment.remat`` checkpoints the
+logs, checkpoints and ``final_model.msgpack``.  With
+``environment.spatial_partition: sp > 1`` the ranks form a 2-D ``(dp,
+sp)`` mesh as the JAX trainer builds it (``dp = world // sp``, lowered
+until it divides the batch; a 1-D mesh when ``sp`` does not divide the
+world): the ``sp`` ranks of a space group read the same lines and each
+trains on a band of the rows of every feature map
+(``parallel/spatial.py``), the batch splits over ``dp``, and the result
+is one process's on the whole global batch at the whole canvas.  The
+port runs every rank, so a mesh smaller than the world raises.
+``environment.remat`` checkpoints the
 backbone's activations (``models/detector.py``).  With ``data_loader.cache_images_device`` the
 decoded images stay in a device bank (one byte budget,
 ``device_cache_budget_gb``, for the train and validation banks together),
@@ -48,20 +55,32 @@ from ..config import (build_model_for_training, class_weights_from_config,
 from ..data import MultiGridDataGenerator, load_annotation_lines
 from ..device import resolve_device
 from ..parallel import distributed as dist
-from ..parallel.mesh import make_mesh, replicate
+from ..parallel.mesh import make_mesh, make_mesh_2d, replicate
 from .checkpoint import CheckpointManager, model_bundle, save_params
 from .state import apply_freeze, count_params, create_train_state
 from .steps import make_eval_step, make_fused_train_step, make_train_step
 
 
-def refuse_unported(config: Dict[str, Any]):
-    """Raise for settings the port does not run yet (never ignore them)."""
+def build_mesh(config: Dict[str, Any]):
+    """The trainer's mesh, as the JAX trainer builds it
+    (``multigriddet_tpu/training/trainer.py:60-78``): with
+    ``environment.spatial_partition: sp > 1`` dividing the ranks, the 2-D
+    ``(dp, sp)`` mesh, ``dp = world // sp`` lowered until it divides
+    ``training.batch_size``; otherwise the 1-D data-parallel mesh."""
     env = config.get('environment', {}) or {}
-    if int(env.get('spatial_partition', 1) or 1) > 1:
-        raise NotImplementedError(
-            'environment.spatial_partition > 1 (dp x sp spatial '
-            'partitioning) is not ported (ROADMAP Queue 1 item 18: every '
-            'convolution needs a halo exchange between the ranks)')
+    sp = int(env.get('spatial_partition', 1) or 1)
+    world = dist.world_size()
+    if sp > 1 and world % sp == 0:
+        batch = int((config.get('training', {}) or {}).get('batch_size', 8))
+        dp = world // sp
+        while dp > 1 and batch % dp != 0:
+            dp -= 1
+        return make_mesh_2d(dp, sp)
+    if sp > 1 and dist.is_primary():
+        print(f'environment.spatial_partition={sp} does not divide the '
+              f'{world} rank(s): training on the 1-D data-parallel mesh, '
+              f'as the JAX trainer does')
+    return make_mesh()
 
 
 @contextlib.contextmanager
@@ -87,14 +106,13 @@ class MultiGridTrainer:
 
     def __init__(self, config: Dict[str, Any], device=None):
         self.config = config
-        refuse_unported(config)
         env = config.get('environment', {}) or {}
         self.device = resolve_device(device)
         # multi-process: join the group before anything touches the card,
         # then train on this rank's own GPU
         dist.maybe_initialize(env.get('distributed'), self.device)
         self.device = dist.local_device(self.device)
-        self.mesh = make_mesh()
+        self.mesh = build_mesh(config)
         self.compute_dtype = (torch.bfloat16 if env.get('mixed_precision')
                               else torch.float32)
         self.training_cfg = config.get('training', {}) or {}
@@ -111,20 +129,21 @@ class MultiGridTrainer:
         data_cfg = self.config.get('data', {}) or {}
         aug_cfg = dict(self.training_cfg.get('augmentation', {}) or {})
         # training.batch_size is the global batch; each rank's generator
-        # yields its 1 / world_size share
+        # yields its share over the mesh's batch axis (a space group's
+        # ranks read the same lines and draw alike)
         batch_size = dist.local_batch_size(
-            int(self.training_cfg.get('batch_size', 8)))
+            int(self.training_cfg.get('batch_size', 8)), self.mesh)
         max_boxes = int(aug_cfg.pop('max_boxes_per_image', 100))
         rescale_interval = int(aug_cfg.pop('rescale_interval', -1))
         # multi-process: a seeded load-time shuffle, so that every rank
         # shards the same order (disjoint equal shards)
         self.train_lines = dist.shard_lines(load_annotation_lines(
             data_cfg['train_annotation'],
-            seed=0 if dist.is_multiprocess() else None))
+            seed=0 if dist.is_multiprocess() else None), self.mesh)
         val_path = data_cfg.get('val_annotation')
         self.val_lines = dist.shard_lines(
             load_annotation_lines(val_path, shuffle=False)
-            if val_path and os.path.exists(val_path) else [])
+            if val_path and os.path.exists(val_path) else [], self.mesh)
         hw = tuple(self.spec['input_shape'][:2])
         loader_cfg = self.config.get('data_loader', {}) or {}
         workers = int(loader_cfg.get('num_workers', 8))
@@ -206,15 +225,17 @@ class MultiGridTrainer:
         anchors, nc = self.spec['anchors'], self.spec['num_classes']
         train_step = make_train_step(anchors, nc, hw, self.loss_cfg, cw,
                                      freeze_level=freeze_level,
-                                     ema_decay=ema_decay)
+                                     ema_decay=ema_decay, mesh=self.mesh)
         self._fused_steps = None
         if bool(self.training_cfg.get('fused_input_stage', True)):
             self._fused_steps = make_fused_train_step(
                 anchors, nc, self.loss_cfg,
                 aug_cfg=self.train_gen.augment_cfg, class_weights=cw,
                 freeze_level=freeze_level, ema_decay=ema_decay,
-                multi_anchor_assign=self.train_gen.multi_anchor_assign)
-        eval_step = make_eval_step(anchors, nc, hw, self.loss_cfg, cw)
+                multi_anchor_assign=self.train_gen.multi_anchor_assign,
+                mesh=self.mesh)
+        eval_step = make_eval_step(anchors, nc, hw, self.loss_cfg, cw,
+                                   mesh=self.mesh)
         return state, train_step, eval_step
 
     def _train_batches(self, state, train_step):
@@ -259,8 +280,8 @@ class MultiGridTrainer:
         avg = {k: v / max(n, 1) for k, v in agg.items()}
         avg['epoch_time_s'] = dt
         avg['steps'] = n
-        # global images (every rank), not this rank's share
-        bsz = self.train_gen.batch_size * dist.world_size()
+        # global images (every batch shard), not this rank's share
+        bsz = self.train_gen.batch_size * self.mesh.dp
         avg['images_per_sec'] = n * bsz / dt if dt > 0 else 0.0
         return state, avg
 
@@ -433,7 +454,7 @@ class MultiGridTrainer:
             from .calibrate import calibrate_batch_stats
             n_cal = int(self.training_cfg.get('bn_recalibrate_batches', 32))
             calibrate_batch_stats(self.model, iter(self.train_gen),
-                                  max_batches=n_cal)
+                                  max_batches=n_cal, mesh=self.mesh)
             print(f'Recalibrated BN statistics over {n_cal} batches')
 
         final_path = os.path.join(model_dir, 'final_model.msgpack')

@@ -13,8 +13,10 @@
   frozen first stage, augmentation and ``bn_recalibrate`` on): equal
   losses on both ranks, ``history.jsonl`` with one line an epoch,
   ``final_model.msgpack`` written by rank 0 alone.
-* The single-process helpers, and ``environment.spatial_partition > 1``
-  still raising (ROADMAP item 18).
+* The single-process helpers, the meshes' shapes, and a one-process
+  trainer with ``environment.spatial_partition: 2`` falling back to the
+  1-D mesh, as the JAX trainer does (``tests/test_torch_spatial.py`` holds
+  the spatial partitioning itself).
 
 The ranks are this file run as a script (no JAX imported there), each
 with a timeout and a free port, so a hang fails the test instead of the
@@ -348,17 +350,33 @@ def test_single_process_helpers():
     x = torch.arange(12.).reshape(4, 3)
     assert torch.equal(shard_batch(mesh, x)[0], x)
     assert replicate(mesh, x) is x
-    for fn in (lambda: make_mesh_2d(2, 2), lambda: image_partition_spec(mesh)):
-        with pytest.raises(NotImplementedError, match='item 18'):
-            fn()
+    # the 2-D mesh of one rank, and the placements of both meshes
+    mesh2 = make_mesh_2d(1, 1)
+    assert (mesh2.size, mesh2.rank, mesh2.shape) == (
+        1, 0, {'batch': 1, 'space': 1})
+    assert image_partition_spec(mesh) == ('batch',)
+    assert image_partition_spec(mesh2) == ('batch', 'space')
+    assert torch.equal(shard_batch(mesh2, x)[0], x)
+    with pytest.raises(ValueError, match='needs 4 ranks'):
+        make_mesh_2d(2, 2)
 
 
 def test_spatial_partition_still_raises(tmp_path):
+    """Named for what it held before spatial partitioning was ported: a
+    one-process trainer with ``spatial_partition: 2`` (which does not
+    divide its one rank) now builds the 1-D mesh, as the JAX trainer does,
+    and trains."""
     from multigriddet_tpu_torch.training import MultiGridTrainer
-    cfg = _trainer_config(str(tmp_path), str(tmp_path))
+    root = tmp_path / 'data'
+    root.mkdir()
+    _dataset(str(root))
+    cfg = _trainer_config(str(root), str(tmp_path))
     cfg['environment'] = {'spatial_partition': 2}
-    with pytest.raises(NotImplementedError, match='item 18'):
-        MultiGridTrainer(cfg, device='cpu')
+    cfg['training'].update(epochs=1, transfer_epochs=0, bn_recalibrate=False)
+    trainer = MultiGridTrainer(cfg, device='cpu')
+    assert trainer.mesh.shape == {'batch': 1}
+    history = trainer.train()
+    assert len(history) == 1 and np.isfinite(history[0]['loss'])
 
 
 @pytest.mark.cuda

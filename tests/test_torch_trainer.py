@@ -226,8 +226,9 @@ def test_reduce_on_plateau_and_early_stopping(dataset, tmp_path, monkeypatch):
     # ported since (activation checkpointing): this trains
     pytest.param({'environment': {'remat': True}}, None,
                  id='change3-item 16'),
-    # dp x sp spatial partitioning stays unported (item 18)
-    pytest.param({'environment': {'spatial_partition': 2}}, 'item 18',
+    # ported since (dp x sp spatial partitioning, item 18): one process
+    # falls back to the 1-D mesh, as the JAX trainer does, and trains
+    pytest.param({'environment': {'spatial_partition': 2}}, None,
                  id='change4-item 13'),
     # ported since (data parallel): a one-process group, named by
     # torchrun's variables, trains
