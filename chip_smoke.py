@@ -63,7 +63,7 @@
    with a 1-epoch cosine warmup, the train config's augmentation block,
    ``cache_images_device: true``, the yuv420 link, 2 epochs of 6 steps
    over 48 synthetic letterboxed frames with 1-30 boxes each (fed through
-   the loader's ``.npy`` disk cache: the card's host has no Pillow) and
+   the loader's ``.npy`` disk cache, so the phase needs no decoder) and
    validation on 16: epoch 1 streamed and epoch 2 from the device bank,
    a bank gather bit-equal to the host path, one byte ledger for the
    train and validation banks, finite history, no NMS launch, a
@@ -139,6 +139,32 @@
     memory against one process at the same global batch.  The ranks are
     this script run with ``--sp-child``.
 
+13. JPEG files: (a) ``csrc/jpeg.cu`` built with the other sources (its
+    ptxas lines), nvJPEG's version and the backends the card offers (the
+    decode uses the default one: Huffman on the host, IDCT on the card;
+    the hardware backend, the only one that scales in the DCT domain, is
+    refused here); (b) every fixture of ``tests/fixtures/jpeg/`` and
+    ``examples/images/dog.jpg`` decoded by nvJPEG and letterboxed by both
+    kernels at 608, 416, 128 and 64: bit-equal to the plain versions on
+    the same decoded pixels, metas and ok equal to fastloader's recorded
+    ones (``letterbox_ref.npz``), rejected slots gray, the pad gray, and
+    the mean |dRGB| at fastloader's recorded sample positions under
+    ``JPEG_MEAN_BOUND`` per image (printed with p99, max, Y and CbCr, and
+    the mean over every pixel of the content's border, where odd sizes
+    and MCU overhang show);
+    the decode's ms an image and each kernel's ms a b8 batch @608 beside
+    its plain version, its bound and ``F.interpolate`` + pad; (c) 64
+    annotation lines over the 640x480 fixtures: ``MultiGridTrainer`` for
+    2 epochs (train config augmentation, yuv420 link) streamed from the
+    files and then from the ``.npy`` disk cache that the card's loader
+    fills (a cached batch bit-equal to a decoded one), the evaluator from
+    the files (predictions equal to ``_evaluate_batches`` on the same
+    canvases in memory) and ``detect_files`` in rgb and yuv420, each
+    profiled: images/s and the device's busy share; then a batch of
+    JPEGs and one PNG through the loader and ``detect_files``, whose
+    JPEG slots must equal an all-JPEG batch's; the letterbox launch
+    counts of (c) go into the kernels line.
+
 ``--step-times CHECKOUT ...`` only times the darknet serve and train
 steps of the port in each checkout given, one process each, and exits:
 the way to compare two commits on one card (parent, change, change,
@@ -180,6 +206,7 @@ F32_PARITY_RTOL = 1e-4
 # 500 detections per image; 8 batches of 8 letterboxed 640x480 frames
 EVAL_CONF, EVAL_MAX_BOXES, EVAL_BATCHES = 0.1, 500, 8
 FRAME_HW = (480, 640)
+KERNEL_SOURCES = ('nms.cu', 'jpeg.cu')
 
 
 def log(msg):
@@ -382,15 +409,22 @@ def bound(bytes_moved, ops):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    """Build every CUDA source at once (one nvcc each, started together);
+    returns ``{source: build info}``."""
+    from concurrent.futures import ThreadPoolExecutor
     from multigriddet_tpu_torch.ops import kernel_build
     t0 = time.perf_counter()
-    info = kernel_build.build('nms.cu')
-    log(f'[build] {os.path.relpath(info["path"], REPO)} in '
-        f'{time.perf_counter() - t0:.2f} s (nvcc {info["seconds"]:.2f} s)')
-    for line in info['log'].splitlines():
-        if 'registers' in line or 'Compiling entry' in line:
-            log(f'[build] {line.strip()}')
-    return info
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        infos = dict(zip(KERNEL_SOURCES,
+                         pool.map(kernel_build.build, KERNEL_SOURCES)))
+    for source, info in infos.items():
+        log(f'[build] {os.path.relpath(info["path"], REPO)}: nvcc '
+            f'{info["seconds"]:.2f} s')
+        for line in info['log'].splitlines():
+            if 'registers' in line or 'Compiling entry' in line:
+                log(f'[build] {line.strip()}')
+    log(f'[build] {len(infos)} sources in {time.perf_counter() - t0:.2f} s')
+    return infos
 
 
 def phase_kernels(dev):
@@ -1059,8 +1093,8 @@ def train_frames(count, seed, hw=None):
 def write_frames(root, name, lines, canvases, boxes, link_format, hw=None,
                  max_boxes=TRAIN_MAX_BOXES):
     """The annotation file, and each frame in ``HostImageLoader``'s own
-    ``.npy`` disk cache, written by the loader's cache writer (the card's
-    host has no Pillow to decode files)."""
+    ``.npy`` disk cache, written by the loader's cache writer (so no
+    image file is decoded)."""
     from multigriddet_tpu_torch.data.annotations import HostImageLoader
     hw = hw or HW
     lines = [os.path.join(root, ln) for ln in lines]
@@ -1386,7 +1420,7 @@ def train_through_trainer(dev, root, val_batch, bank=True):
     pixels = pixels if isinstance(pixels, tuple) else (pixels,)
     rows = torch.from_numpy(idx).to(dev)
     if not (len(banks) == len(pixels) == 3
-            and all(torch.equal(bk[rows].cpu(), torch.from_numpy(p))
+            and all(torch.equal(bk[rows].cpu(), torch.as_tensor(p).cpu())
                     for bk, p in zip(banks, pixels))
             and np.array_equal(bank_boxes, host_boxes)):
         raise AssertionError('a bank gather differs from the host path')
@@ -2893,6 +2927,543 @@ def phase_spatial(dev, smi):
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 13: JPEG files on the card
+# ---------------------------------------------------------------------------
+
+JPEG_DIR = os.path.join(REPO, 'tests', 'fixtures', 'jpeg')
+# mean |dRGB| per image between the JAX package's two decode paths
+# (tests/test_native_loader.py), held between the card's canvases and
+# fastloader's
+JPEG_MEAN_BOUND = 6.0
+JPEG_LINES = 64
+JPEG_BASELINE_420 = ('photo_420_q90.jpg', 'photo_420_q75.jpg',
+                     'photo_restart.jpg', 'odd_333x251.jpg', 'dog.jpg')
+# float32 operations a canvas pixel costs the letterbox kernels (taps and
+# the bilinear of three channels; 4:2:0 adds Y and a quarter of the chroma)
+LETTERBOX_OPS = {'letterbox_rgb': 50, 'letterbox_yuv420': 59}
+# integer operations a pixel costs ycc_to_rgb (two upsampled chroma values
+# and the three table products, sums and clamps)
+YCC_OPS = 40
+
+
+def device_busy(fn):
+    """``fn()`` with the card's kernels traced (CUDA activity alone, no
+    trace file): (wall seconds, the share of them some kernel ran; NaN
+    where the profiler records no kernel)."""
+    import torch
+    from multigriddet_tpu_torch.profile_serve import _union_us
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = (_union_us(kernels) / (seconds * 1e6) if kernels
+            else float('nan'))
+    return seconds, busy
+
+
+def jpeg_fixture_checks(dev):
+    """Part (b): every fixture decoded by nvJPEG and letterboxed by both
+    kernels at the recorded canvases, against the plain versions on the
+    same decoded pixels (bit for bit) and against fastloader's recorded
+    canvases (metas and ok exact, pixels within ``JPEG_MEAN_BOUND``)."""
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.data import jpeg_cuda
+    from multigriddet_tpu_torch.ops import cuda_jpeg
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    from record_jpeg_fixtures import SAMPLES as ref_samples
+    from record_jpeg_fixtures import positions as ref_positions
+    ref = np.load(os.path.join(JPEG_DIR, 'letterbox_ref.npz'))
+    names = [str(n) for n in ref['files']]
+    paths = [os.path.join(REPO, n) for n in names]
+    canvases = [tuple(hw) for hw in ref['canvases'].tolist()]
+    # the planes nvJPEG decoded for Decoder.decode (the main path's call)
+    # through the ycc_to_rgb kernel: the image decode returned, and every
+    # canvas's divisor, against its plain version
+    headers, max_err, converted = [], 0, []
+    with cuda_jpeg.decoder(dev) as dec:
+        for path in paths:
+            with open(path, 'rb') as f:
+                data = f.read()
+            hd = dec.header(data)
+            headers.append(hd)
+            if isinstance(hd, int) or hd[3] not in cuda_jpeg.FACTORS:
+                continue
+            w, h, _, css, cw, ch = hd
+            planes = []
+            image, _, reason = dec.decode(data, None, planes)
+            if image is None:
+                raise AssertionError(f'jpeg: nvJPEG refused {path} '
+                                     f'({reason})')
+            factors = cuda_jpeg.FACTORS[css]
+            host_planes = [p.cpu() for p in planes]
+            want = cuda_jpeg.ycc_to_rgb_plain(*host_planes, factors, 1)
+            max_err = max(max_err, int((image.cpu().int() - want.int())
+                                       .abs().max()))
+            for d in sorted({cuda_jpeg.divisor(w, h, hw) for hw in canvases}):
+                got = cuda_jpeg.ycc_to_rgb(*planes, factors, d).cpu()
+                want = cuda_jpeg.ycc_to_rgb_plain(*host_planes, factors, d)
+                max_err = max(max_err,
+                              int((got.int() - want.int()).abs().max()))
+                converted.append((css, d))
+    if max_err:
+        raise AssertionError(f'jpeg: ycc_to_rgb differs from its plain '
+                             f'version by {max_err}')
+    log(f'[jpeg] ycc_to_rgb bit-equal to its plain version on the planes '
+        f'of the colour files, {len(converted)} (layout, divisor) cases: '
+        f'{sorted(set(converted))}')
+    rows, failures = [], []
+    for ci, (th, tw) in enumerate(canvases):
+        hw = (th, tw)
+        images, sizes = jpeg_cuda.decode_files(paths, dev, hw)
+        host = [None if im is None else im.cpu() for im in images]
+        canvas, metas, ok = cuda_jpeg.letterbox_rgb(images, hw, dev, sizes)
+        y, cb, cr, metas2, ok2 = cuda_jpeg.letterbox_yuv420(images, hw, dev,
+                                                            sizes)
+        got = [t.cpu() for t in (canvas, y, cb, cr)]
+        want, want_metas, want_ok = cuda_jpeg.letterbox_rgb(host, hw, 'cpu',
+                                                            sizes)
+        want = [want, *cuda_jpeg.rgb_to_yuv420_plain(want)]
+        for g, w, part in zip(got, want, ('rgb', 'y', 'cb', 'cr')):
+            err = int((g.int() - w.int()).abs().max()) if g.numel() else 0
+            max_err = max(max_err, err)
+            if err:
+                i = int(torch.nonzero((g != w).flatten(1).any(1))[0])
+                raise AssertionError(f'jpeg: the {part} kernel differs from '
+                                     f'its plain version on {names[i]} at '
+                                     f'{hw}')
+        if not (np.array_equal(metas, want_metas) and np.array_equal(
+                metas2, metas) and np.array_equal(ok, want_ok)
+                and np.array_equal(ok2, ok)):
+            raise AssertionError(f'jpeg: kernel metas differ at {hw}')
+        for fi, name in enumerate(names):
+            base = os.path.basename(name)
+            if not (np.array_equal(metas[fi], ref['metas'][fi, ci])
+                    and bool(ok[fi]) == bool(ref['ok'][fi, ci])):
+                failures.append(f'{base} @{th}: metas {metas[fi].tolist()} '
+                                f'ok {bool(ok[fi])}, fastloader '
+                                f'{ref["metas"][fi, ci].tolist()} ok '
+                                f'{bool(ref["ok"][fi, ci])}')
+                continue
+            if not ok[fi]:
+                if not all(bool((p[fi] == 128).all()) for p in got) \
+                        or metas[fi].any():
+                    failures.append(f'{base} @{th}: a rejected slot is not '
+                                    f'gray with zero metas')
+                continue
+            fw, fh = int(metas[fi, 3]), int(metas[fi, 4])
+            _, nw, nh, px, py = cuda_jpeg.geometry(fw, fh, hw)
+            pad = torch.ones(hw, dtype=torch.bool)
+            pad[py:py + nh, px:px + nw] = False
+            if not bool((got[0][fi][pad] == 128).all()):
+                failures.append(f'{base} @{th}: the pad is not gray')
+            # the recorded positions: seeded samples of the content (the
+            # first SAMPLES), then the content's border
+            (yy, xx), (cy, cx) = ref_positions(name, hw, ref['metas'][fi,
+                                                                     ci])
+            (at, cat), (n, cn) = ref['at'][fi, ci], ref['n'][fi, ci]
+            if (len(yy), len(cy)) != (n, cn):
+                raise AssertionError(f'jpeg: {base} @{th}: {len(yy)}/'
+                                     f'{len(cy)} positions, {n}/{cn} '
+                                     f'recorded')
+            d_rgb = np.abs(got[0][fi].numpy()[yy, xx].astype(np.int32)
+                           - ref['rgb'][at:at + n])
+            d_y = np.abs(got[1][fi].numpy()[yy, xx].astype(np.int32)
+                         - ref['y'][at:at + n])
+            d_c = np.abs(np.stack([got[2][fi].numpy()[cy, cx],
+                                   got[3][fi].numpy()[cy, cx]], -1)
+                         .astype(np.int32) - ref['cbcr'][cat:cat + cn])
+            k, kc = ref_samples, ref_samples // 4
+            sample = d_rgb[:k]
+            row = {'file': base, 'hw': th,
+                   'divisor': cuda_jpeg.divisor(fw, fh, hw),
+                   'css': headers[fi][3],
+                   'content_mean': float(sample.mean()),
+                   'canvas_mean': float(sample.mean()) * nw * nh / (th * tw),
+                   'p99': float(np.percentile(sample, 99)),
+                   'max': int(d_rgb.max()),
+                   'border_mean': float(d_rgb[k:].mean()),
+                   'border_max': int(d_rgb[k:].max()),
+                   'border_pixels': int(n - k),
+                   'y_mean': float(d_y[:k].mean()), 'y_max': int(d_y.max()),
+                   'cbcr_mean': float(d_c[:kc].mean()),
+                   'cbcr_max': int(d_c.max())}
+            rows.append(row)
+            if not row['canvas_mean'] < JPEG_MEAN_BOUND:
+                failures.append(f'{base} @{th}: mean |dRGB| '
+                                f'{row["canvas_mean"]:.3f} >= '
+                                f'{JPEG_MEAN_BOUND}')
+    for fi, name in enumerate(names):
+        base = os.path.basename(name)
+        mine = [r for r in rows if r['file'] == base]
+        info = headers[fi]
+        desc = (f'{info[0]}x{info[1]} {info[3]}' if not isinstance(info, int)
+                else f'rejected by the header ({cuda_jpeg.status_name(info)})')
+        log(f'[jpeg] {base} ({desc}): ' + ('; '.join(
+            f'@{r["hw"]} d{r["divisor"]} |dRGB| mean {r["content_mean"]:.3f}'
+            f' (canvas {r["canvas_mean"]:.3f}) p99 {r["p99"]:.0f}, border '
+            f'mean {r["border_mean"]:.3f} over {r["border_pixels"]} px, max '
+            f'{r["max"]}, Y {r["y_mean"]:.3f}/{r["y_max"]}, CbCr '
+            f'{r["cbcr_mean"]:.3f}/{r["cbcr_max"]}' for r in mine)
+            or 'gray, ok False, zero metas at every canvas'))
+    base420 = [r for r in rows if r['file'] in JPEG_BASELINE_420
+               and r['divisor'] == 1]
+    worst = max(r['content_mean'] for r in base420)
+    log(f'[jpeg] kernels bit-equal to their plain versions on nvJPEG\'s '
+        f'pixels for {len(names)} files at {[hw[0] for hw in canvases]};'
+        f' metas and ok equal to fastloader\'s; at divisor 1 on baseline '
+        f'4:2:0 the largest mean |dRGB| is {worst:.3f} '
+        f'({"under" if worst < 1.0 else "not under"} 1.0)')
+    if failures:
+        raise AssertionError('jpeg fixtures: ' + '; '.join(failures))
+    return {'rows': rows, 'baseline_420_d1_worst_mean': worst,
+            'max_abs_err': max_err}
+
+
+def jpeg_lines(root, photos, seed):
+    """``JPEG_LINES`` annotation lines over the 640x480 ``photos`` (files
+    repeat), 1-10 seeded boxes each."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lines = []
+    for i in range(JPEG_LINES):
+        n = rng.randint(1, 11)
+        wh = rng.uniform(16, 300, (n, 2))
+        x1 = rng.uniform(0, 640 - wh[:, 0])
+        y1 = rng.uniform(0, 480 - wh[:, 1])
+        cls = rng.randint(0, NUM_CLASSES, n)
+        lines.append(photos[i % len(photos)] + ' ' + ' '.join(
+            f'{a:.1f},{b:.1f},{a + w:.1f},{b + h:.1f},{int(k)}'
+            for a, b, (w, h), k in zip(x1, y1, wh, cls)))
+    path = os.path.join(root, 'train.txt')
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return path, lines
+
+
+def jpeg_rates(dev, photos):
+    """Decode ms per image, and each letterbox kernel's ms per b8 batch @608
+    with its plain version's, the bound and the bilinear
+    ``F.interpolate`` + pad yardstick on the same images."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from multigriddet_tpu_torch.data import jpeg_cuda
+    from multigriddet_tpu_torch.ops import cuda_jpeg
+    paths = photos[:B]
+    with open(paths[0], 'rb') as f:
+        data = f.read()
+    with cuda_jpeg.decoder(dev) as dec:
+        w, h, _, css, _, _ = dec.header(data)
+        planes = []
+        if dec.decode(data, None, planes)[0] is None:
+            raise AssertionError(f'jpeg: nvJPEG refused {paths[0]}')
+    factors = cuda_jpeg.FACTORS[css]
+    ycc_ms = cuda_ms(lambda: cuda_jpeg.ycc_to_rgb(*planes, factors), 50,
+                     queued=True)
+    host_planes = [p.cpu() for p in planes]
+    t0 = time.perf_counter()
+    cuda_jpeg.ycc_to_rgb_plain(*host_planes, factors)
+    ycc_plain_ms = (time.perf_counter() - t0) * 1e3
+    moved = sum(p.numel() for p in planes) + 3 * w * h
+    ycc_bound, ycc_by = bound(moved, YCC_OPS * w * h)
+    jpeg_cuda.decode_files(paths, dev, HW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        images, sizes = jpeg_cuda.decode_files(paths, dev, HW)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / reps / len(paths)
+    host = [im.cpu() for im in images]
+    src_bytes = sum(im.numel() for im in images)
+    _, nw, nh, px, py = cuda_jpeg.geometry(640, 480, HW)
+    x = torch.stack([im.expand(480, 640, 3).permute(2, 0, 1) for im in
+                     jpeg_cuda.decode_files(paths, dev)[0]]).float()
+
+    def yardstick():
+        return F.pad(F.interpolate(x, size=(nh, nw), mode='bilinear',
+                                   align_corners=False),
+                     (px, HW[1] - nw - px, py, HW[0] - nh - py), value=128.0)
+    library_ms = cuda_ms(yardstick, 20, queued=True)
+    out = {'ycc_to_rgb': {'ms': ycc_ms, 'plain_ms': ycc_plain_ms,
+                          'bound_ms': ycc_bound, 'bound_by': ycc_by,
+                          'bytes': moved}}
+    log(f'[jpeg] ycc_to_rgb {w}x{h} {css}: {ycc_ms:.4f} ms an image '
+        f'({moved / 1e6:.2f} MB, bound {ycc_bound * 1e3:.2f} us by {ycc_by},'
+        f' {ycc_bound / ycc_ms:.1%} of it); plain on the CPU '
+        f'{ycc_plain_ms:.1f} ms')
+    for name, fn, out_bytes in (
+            ('letterbox_rgb', cuda_jpeg.letterbox_rgb, 3),
+            ('letterbox_yuv420', cuda_jpeg.letterbox_yuv420, 1.5)):
+        ms = cuda_ms(lambda: fn(images, HW, dev, sizes), 50, queued=True)
+        t0 = time.perf_counter()
+        fn(host, HW, 'cpu', sizes)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        moved = src_bytes + out_bytes * len(paths) * HW[0] * HW[1]
+        bound_ms, bound_by = bound(moved, LETTERBOX_OPS[name] * len(paths)
+                                   * nw * nh)
+        out[name] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                     'bound_by': bound_by, 'bytes': moved,
+                     'interpolate_pad_ms': library_ms}
+        log(f'[jpeg] {name} b{len(paths)} 640x480 -> {HW[0]}: {ms:.4f} ms '
+            f'a batch ({moved / 1e6:.2f} MB, bound {bound_ms * 1e3:.2f} us '
+            f'by {bound_by}, {bound_ms / ms:.1%} of it); plain on the CPU '
+            f'{plain_ms:.1f} ms; F.interpolate bilinear + pad (not the same '
+            f'function) {library_ms:.4f} ms')
+    log(f'[jpeg] nvJPEG decode {decode_ms:.3f} ms an image (640x480, '
+        f'{len(paths)} files, host read + Huffman + card IDCT, synchronized)')
+    return decode_ms, out
+
+
+def jpeg_producer(dev, root, photos, rates):
+    """Part (c): the trainer, the evaluator and ``detect_files`` reading
+    ``JPEG_LINES`` JPEG files on the card; the letterbox launch counts
+    of these runs alone."""
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.data import jpeg_cuda
+    from multigriddet_tpu_torch.data.annotations import (
+        HostImageLoader, pad_batch, parse_annotation_line)
+    from multigriddet_tpu_torch.evaluation import MultiGridEvaluator
+    from multigriddet_tpu_torch.inference import MultiGridInference
+    from multigriddet_tpu_torch.models import (load_flax_variables,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.ops import cuda_jpeg
+    from multigriddet_tpu_torch.training import MultiGridTrainer
+    ann, lines = jpeg_lines(root, photos, SEED + 51)
+    decode_ms = rates[0]
+    lb_ms = {k: v['ms'] for k, v in rates[1].items()}
+    ycc_ms = rates[1]['ycc_to_rgb']['ms']
+    kernels = (cuda_jpeg.ycc_to_rgb, cuda_jpeg.letterbox_rgb,
+               cuda_jpeg.letterbox_yuv420)
+    launches = {k.__name__: 0 for k in kernels}
+    out = {}
+
+    def run(label, n_images, fn, rate=None, extra=lambda: ''):
+        """One main-path run, its kernels traced: the launches of the
+        kernels of jpeg.cu (counted from zero just before it), images/s
+        (``rate()``, or images over the wall) and the device's busy
+        share."""
+        for k in kernels:
+            k.launches = 0
+        seconds, busy = device_busy(fn)
+        for k in kernels:
+            launches[k.__name__] += k.launches
+        ips = rate() if rate else n_images / seconds
+        log(f'[jpeg] {label}: {ips:.1f} img/s ({n_images} images, '
+            f'{seconds:.2f} s in all), decode {decode_ms:.3f} ms an image '
+            f'(ycc_to_rgb {ycc_ms:.4f}), letterbox kernel '
+            f'{lb_ms["letterbox_rgb"]:.4f} (rgb) / '
+            f'{lb_ms["letterbox_yuv420"]:.4f} (yuv420) ms a batch, device '
+            f'busy {busy:.1%}{extra()}')
+        out[label] = {'images_per_sec': ips, 'seconds': seconds,
+                      'device_busy_share': busy}
+        return out[label]
+
+    # the trainer: streamed from the files, then from the .npy disk cache
+    # that the card's loader fills (one device-to-host copy a batch)
+    cache = os.path.join(root, 'cache')
+    filler = HostImageLoader(lines, HW, TRAIN_MAX_BOXES, num_workers=1,
+                             disk_cache_dir=cache, link_format='yuv420',
+                             device=dev)
+    plain = HostImageLoader(lines, HW, TRAIN_MAX_BOXES, num_workers=1,
+                            link_format='yuv420', device=dev)
+    for start in range(0, len(lines), B):
+        filler.load_batch(lines[start:start + B])
+    cached, cached_boxes = filler.load_batch(lines[:B])
+    fresh, fresh_boxes = plain.load_batch(lines[:B])
+    if not (all(torch.equal(a, b) for a, b in zip(cached, fresh))
+            and np.array_equal(cached_boxes, fresh_boxes)):
+        raise AssertionError('jpeg: the disk cache differs from the decode')
+    filler.close()
+    plain.close()
+    for label, tag, cache_dir in (
+            ('trainer from JPEG files', 'files', None),
+            ('trainer from the .npy disk cache', 'cached', cache)):
+        cfg = train_config(os.path.join(root, tag), aug=TRAIN_AUG)
+        cfg['data'] = {'train_annotation': ann}
+        cfg['data_loader']['disk_cache_dir'] = cache_dir
+        cfg['training']['epochs'] = 2
+        trainer = MultiGridTrainer(cfg, device=dev)
+        history = []
+        res = run(label, 2 * JPEG_LINES,
+                  lambda: history.extend(trainer.train()),
+                  lambda: history[-1]['images_per_sec'],
+                  lambda: f' (epoch 2); epoch images/s '
+                          f'{[round(r["images_per_sec"], 1) for r in history]}'
+                          f', losses {[round(r["loss"], 4) for r in history]}')
+        if not all(np.isfinite(r['loss']) for r in history) or \
+                len(history) != 2:
+            raise AssertionError(f'jpeg: {label}: bad history {history}')
+        res['epoch_images_per_sec'] = [r['images_per_sec'] for r in history]
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the evaluator from the files against the same canvases in memory,
+    # with deterministic cuDNN (two forwards of one batch then agree)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ev = MultiGridEvaluator(eval_config('pallas_fused'), device=dev)
+        run('evaluator from JPEG files', len(lines),
+            lambda: ev.evaluate(ann),
+            lambda: ev.timing['images_per_sec'], lambda: ' (inference)')
+        from_files = ev.predictions
+        ev.evaluate(ann)
+        again = ev.predictions
+        items, file_parts = [], [parts for parts, _ in
+                                 ev._file_batches(lines)]
+        for start in range(0, len(lines), B):
+            chunk = lines[start:start + B]
+            imgs, metas, ok = jpeg_cuda.load_letterbox_batch_cuda(
+                [ln.split()[0] for ln in chunk], HW, dev)
+            items.append(((pad_batch(imgs, B),), [
+                (start + i, parse_annotation_line(ln)[1], int(m[4]),
+                 int(m[3]), None, not good) for i, (ln, m, good) in
+                enumerate(zip(chunk, metas, ok))]))
+        if not all(torch.equal(fp[0], it[0][0])
+                   for fp, it in zip(file_parts, items)):
+            raise AssertionError('jpeg: the evaluator\'s file batches differ '
+                                 'from the canvases decoded in memory')
+        ev._evaluate_batches(iter(items))
+        in_memory = ev.predictions
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    for run_ in (from_files, again):
+        differ = [k for k in sorted(run_) if k not in in_memory or any(
+            not np.array_equal(run_[k][f], in_memory[k][f])
+            for f in ('boxes', 'classes', 'scores'))]
+        if differ or sorted(run_) != sorted(in_memory):
+            raise AssertionError(
+                f'jpeg: the evaluator\'s predictions from files differ from '
+                f'the same canvases in memory on {len(differ)} images')
+    n_det = sum(len(p['scores']) for p in from_files.values())
+    log(f'[jpeg] evaluator: {n_det} detections from the files (two runs) '
+        f'equal to the same canvases fed in memory, the file batches '
+        f'bit-equal to them')
+    del ev
+    for link in ('rgb', 'yuv420'):
+        cfg = serve_config('pallas_fused')
+        cfg['detection']['link_format'] = link
+        engine = MultiGridInference(cfg, device=dev)
+        load_flax_variables(engine.model,
+                            *random_flax_variables(engine.model, seed=SEED))
+        paths = [ln.split()[0] for ln in lines]
+        results = []
+        run(f'detect_files {link}', len(paths),
+            lambda: results.extend(engine.detect_files(paths, batch_size=B)),
+            extra=lambda: f'; {sum(len(s) for _, _, s in results)} '
+                          f'detections')
+        if len(results) != len(paths) or not all(
+                in_range(b, c, s, FRAME_HW, 0.0) for b, c, s in results):
+            raise AssertionError(f'jpeg: detect_files ({link}) gave '
+                                 f'results out of range')
+        jpeg_mixed_batch(dev, engine, paths[:B], root, link)
+        del engine
+    if not all(launches.values()):
+        raise AssertionError(f'jpeg: a kernel of jpeg.cu was not launched on '
+                             f'the file paths: {launches}')
+    out['launches'] = launches
+    return out
+
+
+def jpeg_mixed_batch(dev, engine, paths, root, link):
+    """A batch of JPEGs and one PNG on the card, through the loader and
+    ``detect_files``: every path goes to nvJPEG, which rejects the PNG (a
+    gray slot, or Pillow's canvas where Pillow imports), and each JPEG
+    comes out as it does in an all-JPEG batch."""
+    import shutil
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.data.annotations import (HostImageLoader,
+                                                         pil_available)
+    png = os.path.join(root, 'not_a_jpeg.png')
+    shutil.copy(os.path.join(JPEG_DIR, 'png_named.jpg'), png)
+    mixed = paths[:-1] + [png]
+    retried = pil_available()
+    loader = HostImageLoader([], HW, 1, num_workers=1, link_format=link,
+                             device=dev)
+    try:
+        want, _, _, want_ok = loader.load_batch(
+            [f'{p} 2,2,30,30,1' for p in paths], return_metas=True)
+        got, _, _, ok = loader.load_batch(
+            [f'{p} 2,2,30,30,1' for p in mixed], return_metas=True)
+    finally:
+        loader.close()
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    if not (want_ok.all() and ok[:-1].all() and bool(ok[-1]) == retried
+            and all(torch.equal(g[:-1], w[:-1]) for g, w in zip(got, want))
+            and (retried or all(bool((g[-1] == 128).all()) for g in got))):
+        raise AssertionError(f'jpeg: the loader\'s mixed batch ({link}) '
+                             f'differs from the all-JPEG one, ok {ok}')
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = engine.detect_files(paths, batch_size=len(paths))
+        got = engine.detect_files(mixed, batch_size=len(paths))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if not (all(np.array_equal(g, w) for gr, wr in zip(got[:-1], want)
+                for g, w in zip(gr, wr))
+            and (retried or len(got[-1][0]) == 0)):
+        raise AssertionError(f'jpeg: detect_files on a mixed batch ({link}) '
+                             f'differs from the all-JPEG one')
+    log(f'[jpeg] mixed batch ({link}, {len(paths) - 1} JPEGs and a PNG): '
+        f'every path through nvJPEG, the PNG rejected '
+        f'({"retried by Pillow" if retried else "gray, no Pillow here"}), '
+        f'the JPEG slots of the loader and of detect_files equal to an '
+        f'all-JPEG batch\'s')
+
+
+def phase_jpeg(dev, smi, build=None):
+    """Phase 13: JPEG files on the card (nvJPEG decode, the letterbox
+    kernels, the file producer of the trainer, the evaluator and
+    ``detect_files``) at ``multigriddet_darknet`` full width, @608, b8."""
+    import shutil
+    import numpy as np
+    from multigriddet_tpu_torch.ops import cuda_jpeg
+    t0 = time.perf_counter()
+    info = (build or {}).get('jpeg.cu')
+    if info is not None:
+        log(f'[jpeg] jpeg.cu built in {info["seconds"]:.2f} s: ' + '; '.join(
+            ln.strip() for ln in info['log'].splitlines()
+            if 'registers' in ln))
+    from multigriddet_tpu_torch.data.annotations import pil_available
+    from multigriddet_tpu_torch.inference.engine import _can_draw
+    report = cuda_jpeg.decoder_report(dev)
+    report['pillow'], report['can_draw'] = pil_available(), _can_draw()
+    log(f'[jpeg] decoder: nvJPEG {report["nvjpeg"]}, backend '
+        f'{report["backend_used"]}; backends here: {report["backends"]}; '
+        f'Pillow imports here: {report["pillow"]} (it retries rejected '
+        f'slots only), OpenCV or Pillow to draw: {report["can_draw"]}')
+    fixtures = jpeg_fixture_checks(dev)
+    ref = np.load(os.path.join(JPEG_DIR, 'letterbox_ref.npz'))
+    photos = [os.path.join(REPO, str(n)) for n, m in zip(
+        ref['files'], ref['metas'][:, 0]) if m[3] == 640 and m[4] == 480]
+    rates = jpeg_rates(dev, photos)
+    root = os.path.join(REPO, 'build', 'chip_smoke_jpeg')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        producer = jpeg_producer(dev, root, photos, rates)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f'[jpeg] phase took {seconds:.1f} s; card: {smi}')
+    return {'decoder': report, 'fixtures': fixtures,
+            'decode_ms_per_image': rates[0], 'kernels': rates[1],
+            'producer': producer, 'launches': producer['launches'],
+            'seconds': seconds}
+
+
+
 _STEP_TIMES_CHILD = """
 import importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -3009,6 +3580,8 @@ def main(argv=None) -> int:
         data_parallel = phase_data_parallel(dev, smi)
     with timer.phase('12 spatial partition'):
         spatial = phase_spatial(dev, smi)
+    with timer.phase('13 jpeg'):
+        jpeg = phase_jpeg(dev, smi, build)
     log('[phases]\n' + timer.summary())
 
     src = 'multigriddet_tpu_torch/csrc/nms.cu'
@@ -3027,19 +3600,31 @@ def main(argv=None) -> int:
                 'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
                 'bound_by': k['bound_by'], 'library_ms': None}
                for k in ktimes]
+    for name, replaces in (('ycc_to_rgb', 'native/fastloader.cpp:44'),
+                           ('letterbox_rgb', 'native/fastloader.cpp:107'),
+                           ('letterbox_yuv420', 'native/fastloader.cpp:209')):
+        k = jpeg['kernels'][name]
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'multigriddet_tpu_torch/csrc/jpeg.cu',
+            'replaces': replaces, 'launches': jpeg['launches'][name],
+            'max_abs_err': jpeg['fixtures']['max_abs_err'], 'ms': k['ms'],
+            'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
+            'bound_by': k['bound_by'], 'library_ms': None})
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
         with open(args.report, 'w') as f:
             json.dump({'card': smi, 'torch': torch.__version__,
                        'cuda': torch.version.cuda,
-                       'build_seconds': build['seconds'],
+                       'build_seconds': {k: v['seconds']
+                                         for k, v in build.items()},
                        'serve': times, 'launches': launches,
                        'f32_parity_rel_err': f32_err, 'kernels': kernels,
                        'evaluate': evaluate, 'train': train,
                        'overfit_map': overfit, 'zoo': zoo,
                        'export': export, 'data_parallel': data_parallel,
-                       'spatial_partition': spatial,
+                       'spatial_partition': spatial, 'jpeg': jpeg,
                        'phase_seconds': timer.totals,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},

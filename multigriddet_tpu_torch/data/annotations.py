@@ -3,9 +3,10 @@
 Counterpart of ``multigriddet_tpu/data/annotations.py``: one line per
 image, ``image_path x1,y1,x2,y2,cls x1,y1,x2,y2,cls ...``; Pillow BICUBIC
 letterboxing onto a gray (128) canvas; and ``HostImageLoader``, which
-decodes and letterboxes batches into numpy arrays (native JPEG loader
-where it is built, PIL otherwise).  Pillow is imported when an image is
-read, so the module imports without it.
+decodes and letterboxes batches: into numpy arrays on the CPU (native JPEG
+loader where it is built, PIL otherwise), into tensors on the card
+(nvJPEG and the card's letterbox kernels).  Pillow is imported when an
+image is read through it, so the module imports without it.
 """
 
 from __future__ import annotations
@@ -16,6 +17,18 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from ..device import resolve_device, to_device
+
+
+def pil_available() -> bool:
+    """Whether Pillow imports (the card's host may have none)."""
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 def load_annotation_lines(path: str, shuffle: bool = True,
@@ -75,6 +88,18 @@ def _letterbox_boxes(boxes: np.ndarray, max_boxes: int, scale: float,
     return out
 
 
+def pad_batch(part, n: int):
+    """A batch (numpy or tensor) padded with zero slots to ``n`` rows."""
+    if len(part) >= n:
+        return part
+    if isinstance(part, torch.Tensor):
+        return torch.cat([part, part.new_zeros((n - len(part),
+                                                *part.shape[1:]))])
+    buf = np.zeros((n, *part.shape[1:]), part.dtype)
+    buf[:len(part)] = part
+    return buf
+
+
 def load_and_letterbox(line: str, target_hw: Tuple[int, int],
                        max_boxes: int) -> Tuple[np.ndarray, np.ndarray]:
     """Decode one annotation line to (image [H, W, 3] u8,
@@ -89,23 +114,30 @@ def load_and_letterbox(line: str, target_hw: Tuple[int, int],
 
 
 class HostImageLoader:
-    """Image decode + letterbox producing numpy batches.
+    """Image decode + letterbox producing batches.
 
-    JPEG batches go through the native loader (``data/native.py``) when it
-    is built; everything else, and any slot the native path rejects, goes
-    through PIL on a thread pool.  ``link_format='rgb'`` gives one
-    ``[N, H, W, 3]`` u8 array; ``'yuv420'`` a tuple of planar
-    ``(y [N, H, W], cb, cr [N, H/2, W/2])`` u8, half the bytes for the
-    host-to-device copy.  ``cache_images`` keeps decoded images in memory;
+    On the CPU (the default ``device``) JPEG batches go through the native
+    loader (``data/native.py``) when it is built; everything else, and any
+    slot the native path rejects, goes through PIL on a thread pool; the
+    batches are numpy.  On a CUDA ``device`` every batch is decoded by
+    nvJPEG and letterboxed by the card's kernels (``data/jpeg_cuda.py``)
+    on the caller's current stream, and the batches are tensors on the
+    device; a slot the decoder rejects (a PNG, a corrupt file) is retried
+    through PIL where Pillow imports and stays gray otherwise.
+    ``link_format='rgb'`` gives one ``[N, H, W, 3]`` u8 batch; ``'yuv420'``
+    a tuple of planar ``(y [N, H, W], cb, cr [N, H/2, W/2])`` u8, half the
+    bytes.  ``cache_images`` keeps decoded images in host memory;
     ``disk_cache_dir`` keeps them as ``.npy`` files keyed by
-    sha1(line | file mtime | canvas | max_boxes), written atomically.
+    sha1(line | file mtime | canvas | max_boxes), written atomically; on
+    the card a miss is written from the device result with one
+    device-to-host copy.
     """
 
     def __init__(self, lines: Sequence[str], target_hw: Tuple[int, int],
                  max_boxes: int = 100, num_workers: int = 8,
                  use_native: bool = True, cache_images: bool = False,
                  disk_cache_dir: Optional[str] = None,
-                 link_format: str = 'rgb'):
+                 link_format: str = 'rgb', device=None):
         self.lines = list(lines)
         self.target_hw = tuple(target_hw)
         self.max_boxes = max_boxes
@@ -113,8 +145,11 @@ class HostImageLoader:
         if link_format not in ('rgb', 'yuv420'):
             raise ValueError(f'unknown link_format {link_format!r}')
         self.link_format = link_format
+        self.device = (torch.device('cpu') if device is None
+                       else resolve_device(device))
+        self.on_card = self.device.type == 'cuda'
         self.pool = ThreadPoolExecutor(max_workers=num_workers)
-        if use_native:
+        if use_native and not self.on_card:
             from .native import native_available
             self.use_native = native_available()
         else:
@@ -172,13 +207,25 @@ class HostImageLoader:
         return (canvas,)
 
     def _load_batch_pil(self, batch_lines, hw):
+        """Per line: (parts, boxes, metas (scale, pad_x, pad_y, w, h), ok);
+        an unreadable file gives a gray canvas, no boxes and zero metas."""
+        from PIL import Image
+
         def safe(line):
+            path, boxes = parse_annotation_line(line)
             try:
-                img, bx = load_and_letterbox(line, hw, self.max_boxes)
+                with Image.open(path) as img:
+                    img = img.convert('RGB')
+                    iw, ih = img.size
+                    arr, scale, pad_x, pad_y = letterbox_image(img, hw)
             except (OSError, ValueError):
-                img = np.full((*hw, 3), 128, np.uint8)
-                bx = np.zeros((self.max_boxes, 5), np.float32)
-            return self._to_parts(img), bx
+                return (self._to_parts(np.full((*hw, 3), 128, np.uint8)),
+                        np.zeros((self.max_boxes, 5), np.float32),
+                        np.zeros((5,), np.float32), False)
+            bx = _letterbox_boxes(boxes, self.max_boxes, scale, pad_x, pad_y)
+            return (self._to_parts(arr), bx,
+                    np.asarray([scale, pad_x, pad_y, iw, ih], np.float32),
+                    True)
         return list(self.pool.map(safe, batch_lines))
 
     def _alloc_parts(self, n: int, hw: Tuple[int, int]):
@@ -194,13 +241,34 @@ class HostImageLoader:
         """An rgb batch stays a bare array; a yuv420 batch a tuple."""
         return parts if self.link_format == 'yuv420' else parts[0]
 
+    def _on_device(self, parts):
+        """Host parts on the loader's device (the current stream)."""
+        if not self.on_card:
+            return parts
+        return tuple(to_device(np.ascontiguousarray(p), self.device)
+                     for p in parts)
+
     def load_batch(self, batch_lines: Sequence[str],
-                   target_hw: Optional[Tuple[int, int]] = None):
-        """Returns (images, boxes [N, max_boxes, 5] in canvas pixels)."""
-        hw = target_hw or self.target_hw
+                   target_hw: Optional[Tuple[int, int]] = None,
+                   return_metas: bool = False):
+        """Returns (images, boxes [N, max_boxes, 5] in canvas pixels), and
+        with ``return_metas`` also ``metas [N, 5]`` f32 ``(scale, pad_x,
+        pad_y, full_w, full_h)`` and ``ok [N]`` bool (a loader with a cache
+        keeps no metas, so it refuses ``return_metas``).  The images are
+        numpy on the CPU and tensors on a CUDA device."""
+        hw = tuple(target_hw or self.target_hw)
+        if self._cache is None and not self.disk_cache_dir:
+            parts, boxes, metas, ok = self._load_batch_uncached(batch_lines,
+                                                                hw)
+            if return_metas:
+                return self._unwrap(parts), boxes, metas, ok
+            return self._unwrap(parts), boxes
+        if return_metas:
+            raise ValueError('a loader with an image cache keeps no metas; '
+                             'load without a cache for them')
         if self._cache is None:
             parts, boxes = self._load_batch_disk_or_decode(batch_lines, hw)
-            return self._unwrap(parts), boxes
+            return self._unwrap(self._on_device(parts)), boxes
         missing = [l for l in batch_lines if (l, hw) not in self._cache]
         if missing:
             parts, boxes = self._load_batch_disk_or_decode(missing, hw)
@@ -214,13 +282,22 @@ class HostImageLoader:
             for buf, pt in zip(out, img_parts):
                 buf[i] = pt
             boxes[i] = bx
-        return self._unwrap(out), boxes
+        return self._unwrap(self._on_device(out)), boxes
+
+    def _load_batch_host(self, batch_lines: Sequence[str],
+                         hw: Tuple[int, int]):
+        """:meth:`_load_batch_uncached` as numpy (parts, boxes): a batch
+        decoded on the card comes back in one copy per part."""
+        parts, boxes, _, _ = self._load_batch_uncached(batch_lines, hw)
+        if self.on_card:
+            parts = tuple(p.cpu().numpy() for p in parts)
+        return parts, boxes
 
     def _load_batch_disk_or_decode(self, batch_lines: Sequence[str],
                                    hw: Tuple[int, int]):
-        """Returns (parts tuple of batch arrays, boxes)."""
+        """Returns (parts tuple of numpy batch arrays, boxes)."""
         if not self.disk_cache_dir:
-            return self._load_batch_uncached(batch_lines, hw)
+            return self._load_batch_host(batch_lines, hw)
         keys = [self._disk_key(l, hw) for l in batch_lines]
         hits = list(self.pool.map(self._disk_read, keys))
         out = self._alloc_parts(len(batch_lines), hw)
@@ -232,7 +309,7 @@ class HostImageLoader:
                     buf[i] = pt
                 boxes[i] = h[1]
         if miss_idx:
-            m_parts, m_boxes = self._load_batch_uncached(
+            m_parts, m_boxes = self._load_batch_host(
                 [batch_lines[i] for i in miss_idx], hw)
             for j, i in enumerate(miss_idx):
                 for buf, pt in zip(out, m_parts):
@@ -246,19 +323,27 @@ class HostImageLoader:
 
     def _load_batch_uncached(self, batch_lines: Sequence[str],
                              hw: Tuple[int, int]):
-        """Returns (parts tuple of batch arrays, boxes)."""
+        """Returns (parts tuple of batch arrays, boxes, metas, ok): numpy
+        parts on the CPU, tensors on the card."""
         parsed = [parse_annotation_line(l) for l in batch_lines]
         paths = [p for p, _ in parsed]
         jpeg = all(p.lower().endswith(('.jpg', '.jpeg')) for p in paths)
-        if self.use_native and jpeg and paths:
-            from . import native
+        if paths and (self.on_card or (self.use_native and jpeg)):
+            if self.on_card:
+                from . import jpeg_cuda as loader
+                kw = {'device': self.device}
+                yuv, rgb = (loader.load_letterbox_yuv_batch_cuda,
+                            loader.load_letterbox_batch_cuda)
+            else:
+                from . import native as loader
+                kw = {'nthreads': self.num_workers}
+                yuv, rgb = (loader.load_letterbox_yuv_batch,
+                            loader.load_letterbox_batch)
             if self.link_format == 'yuv420':
-                ys, cbs, crs, metas, ok = native.load_letterbox_yuv_batch(
-                    paths, hw, nthreads=self.num_workers)
+                ys, cbs, crs, metas, ok = yuv(paths, hw, **kw)
                 parts = (ys, cbs, crs)
             else:
-                images, metas, ok = native.load_letterbox_batch(
-                    paths, hw, nthreads=self.num_workers)
+                images, metas, ok = rgb(paths, hw, **kw)
                 parts = (images,)
             boxes = np.zeros((len(paths), self.max_boxes, 5), np.float32)
             for i, (_, b) in enumerate(parsed):
@@ -266,24 +351,30 @@ class HostImageLoader:
                     boxes[i] = _letterbox_boxes(b, self.max_boxes,
                                                 metas[i, 0], metas[i, 1],
                                                 metas[i, 2])
-            # PIL retry for any slot the native decoder rejected
+            # PIL retry for any slot the decoder rejected (a PNG, a
+            # corrupt file), where Pillow imports
             bad = np.where(~ok)[0]
-            if len(bad):
+            if len(bad) and pil_available():
                 results = self._load_batch_pil(
                     [batch_lines[i] for i in bad], hw)
-                for j, i in enumerate(bad):
-                    for buf, pt in zip(parts, results[j][0]):
-                        buf[i] = pt
-                    boxes[i] = results[j][1]
-            return parts, boxes
+                ok = ok.copy()
+                for i, (img_parts, bx, meta, good) in zip(bad, results):
+                    for buf, pt in zip(parts, img_parts):
+                        buf[i] = (to_device(np.array(pt), self.device)
+                                  if self.on_card else pt)
+                    boxes[i], metas[i], ok[i] = bx, meta, good
+            return parts, boxes, metas, ok
         results = self._load_batch_pil(batch_lines, hw)
         parts = self._alloc_parts(len(results), hw)
-        boxes = np.zeros((len(results), self.max_boxes, 5), np.float32)
-        for i, (img_parts, bx) in enumerate(results):
+        n = len(results)
+        boxes = np.zeros((n, self.max_boxes, 5), np.float32)
+        metas = np.zeros((n, 5), np.float32)
+        ok = np.zeros((n,), bool)
+        for i, (img_parts, bx, meta, good) in enumerate(results):
             for buf, pt in zip(parts, img_parts):
                 buf[i] = pt
-            boxes[i] = bx
-        return parts, boxes
+            boxes[i], metas[i], ok[i] = bx, meta, good
+        return self._on_device(parts), boxes, metas, ok
 
     def close(self):
         self.pool.shutdown(wait=False)

@@ -3,7 +3,9 @@
 Counterpart of ``multigriddet_tpu/data/pipeline.py``:
 
   host thread:  read file -> decode -> letterbox -> u8 batch (rgb or the
-                yuv420 link format) -> host-to-device copy started
+                yuv420 link format) -> host-to-device copy started; on the
+                card, nvJPEG decodes and a kernel letterboxes on the copy
+                stream instead, and the batch is born on the device
   device:       u8 -> f32 [0, 255] -> photometric augs -> crop/pad zoom ->
                 flips -> filters -> rotations -> gridmask -> capacity
                 expand -> mosaic -> mixup -> copy-paste -> [0, 1] ->
@@ -377,7 +379,7 @@ class MultiGridDataGenerator:
         self.loader = HostImageLoader(
             self.lines, self.input_shape, max_boxes, num_workers,
             cache_images=cache_images, disk_cache_dir=disk_cache_dir,
-            link_format=link_format)
+            link_format=link_format, device=self.device)
         self.drop_remainder = drop_remainder
         self.multi_anchor_assign = multi_anchor_assign
         self._copy_stream = (torch.cuda.Stream(self.device)
@@ -412,17 +414,36 @@ class MultiGridDataGenerator:
         return self._cur_hw
 
     def _upload(self, pixels) -> Tuple[Tuple[torch.Tensor, ...], object]:
-        """Start the host-to-device copy of a batch's parts; returns the
-        parts and the event the consumer waits on (None on the CPU)."""
+        """Start the host-to-device copy of a batch's parts (parts already
+        on the device pass through); returns the parts and the event the
+        consumer waits on (None on the CPU).  The event follows everything
+        queued on the copy stream so far: the producer decodes and
+        letterboxes a JPEG batch there too."""
+        def tensor(p):
+            if isinstance(p, torch.Tensor):
+                return p
+            if self._copy_stream is None:
+                return torch.from_numpy(np.ascontiguousarray(p))
+            return to_device(np.ascontiguousarray(p), self.device)
         if self._copy_stream is None:
-            return tuple(torch.from_numpy(np.ascontiguousarray(p))
-                         for p in pixels), None
+            return tuple(tensor(p) for p in pixels), None
         with torch.cuda.stream(self._copy_stream):
-            parts = tuple(to_device(np.ascontiguousarray(p), self.device)
-                          for p in pixels)
+            parts = tuple(tensor(p) for p in pixels)
             event = torch.cuda.Event()
             event.record(self._copy_stream)
         return parts, event
+
+    def _load(self, batch_lines, hw):
+        """The loader's batch and its upload: on the card the loader's
+        decode, letterbox and copies run on the copy stream."""
+        if self._copy_stream is None:
+            pixels, boxes = self.loader.load_batch(batch_lines, hw)
+        else:
+            with torch.cuda.stream(self._copy_stream):
+                pixels, boxes = self.loader.load_batch(batch_lines, hw)
+        if not isinstance(pixels, tuple):
+            pixels = (pixels,)
+        return self._upload(pixels), boxes
 
     @staticmethod
     def _ready(parts, event):
@@ -481,10 +502,8 @@ class MultiGridDataGenerator:
                             and self._dcache.has(hw, batch_lines)):
                         q.put((None, None, batch_lines, hw))
                         continue
-                    pixels, boxes = self.loader.load_batch(batch_lines, hw)
-                    if not isinstance(pixels, tuple):
-                        pixels = (pixels,)
-                    q.put((self._upload(pixels), boxes, batch_lines, hw))
+                    upload, boxes = self._load(batch_lines, hw)
+                    q.put((upload, boxes, batch_lines, hw))
                 q.put(None)
             except BaseException as exc:    # re-raised by the consumer
                 q.put(exc)

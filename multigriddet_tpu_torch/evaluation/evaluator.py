@@ -27,7 +27,8 @@ import torch
 
 from ..config import build_model_for_inference, resolve_compute_dtype
 from ..data.annotations import (HostImageLoader, load_annotation_lines,
-                                parse_annotation_line)
+                                pad_batch, parse_annotation_line,
+                                pil_available)
 from ..device import resolve_device
 from ..ops.geometry import canvas_boxes_to_image
 from ..training.steps import fetch_detections, make_infer_step
@@ -123,50 +124,48 @@ class MultiGridEvaluator:
                       ) -> Iterator[Tuple[Tuple[np.ndarray, ...], List]]:
         """Decode and letterbox ``lines`` in batches.
 
-        Yields ``(parts, metas)``: ``parts`` the batch's pixel arrays
-        (``(images,)`` or ``(y, cb, cr)``, padded to ``batch_size``),
-        ``metas`` one ``(image_id, gt x1y1x2y2cls [M, 5], orig_h, orig_w,
-        raw RGB or None, failed)`` per image.  An image that cannot be read
-        is fed as the loader's gray canvas and marked failed: its ground
-        truth counts as missed and it gets no predictions."""
-        from PIL import Image
-
+        Yields ``(parts, metas)``: ``parts`` the batch's pixels
+        (``(images,)`` or ``(y, cb, cr)``, padded to ``batch_size``; numpy
+        on the CPU, tensors decoded on the card), ``metas`` one
+        ``(image_id, gt x1y1x2y2cls [M, 5], orig_h, orig_w, raw RGB or
+        None, failed)`` per image.  The original size comes from the
+        loader's metas.  An image that cannot be read is fed as the
+        loader's gray canvas and marked failed: its ground truth counts as
+        missed and it gets no predictions.  Only annotated images need
+        Pillow (to read the original and to save the drawing)."""
         annotated_cfg = self._annotated_cfg()
         save_imgs = bool(annotated_cfg.get('enabled'))
         max_save = int(annotated_cfg.get('max_images', 10) or 0)
+        if save_imgs and max_save > 0 and not pil_available():
+            raise ImportError(
+                'visualizations.save_annotated_images needs Pillow to read '
+                'and save the annotated images, and this host has none; '
+                'turn it off to evaluate without Pillow (JPEG files decode '
+                'on the card without it, ROADMAP item 17)')
         loader = HostImageLoader(
             lines, self.input_hw, max_boxes=1,
             num_workers=int(self.eval_cfg.get('num_workers', 8)),
-            link_format=self.link_format)
+            link_format=self.link_format, device=self.device)
         try:
             for start in range(0, len(lines), self.batch_size):
                 chunk = lines[start:start + self.batch_size]
-                images, _ = loader.load_batch(chunk)
+                images, _, sizes, ok = loader.load_batch(chunk,
+                                                         return_metas=True)
                 parts = images if isinstance(images, tuple) else (images,)
-                if len(chunk) < self.batch_size:
-                    padded = []
-                    for p in parts:
-                        buf = np.zeros((self.batch_size, *p.shape[1:]),
-                                       p.dtype)
-                        buf[:len(chunk)] = p
-                        padded.append(buf)
-                    parts = tuple(padded)
+                parts = tuple(pad_batch(p, self.batch_size) for p in parts)
                 metas = []
                 for bi, line in enumerate(chunk):
                     img_path, gt_boxes = parse_annotation_line(line)
                     raw = None
-                    failed = False
-                    try:
-                        with Image.open(img_path) as img:
-                            iw, ih = img.size
-                            if save_imgs and start + bi < max_save:
-                                raw = np.asarray(img.convert('RGB'))
-                    except (OSError, ValueError) as exc:
-                        print(f'WARNING: cannot read {img_path} '
-                              f'({type(exc).__name__}); counting its '
-                              f'ground truth as missed')
+                    failed = not ok[bi]
+                    if failed:
+                        print(f'WARNING: cannot read {img_path}; counting '
+                              f'its ground truth as missed')
                         ih, iw = self.input_hw
-                        failed = True
+                    else:
+                        iw, ih = int(sizes[bi, 3]), int(sizes[bi, 4])
+                        if save_imgs and start + bi < max_save:
+                            raw = _read_rgb(img_path)
                     metas.append((start + bi, gt_boxes, ih, iw, raw,
                                   failed))
                 yield parts, metas
@@ -351,3 +350,14 @@ def _in_thread(items: Iterator, maxsize: int) -> Iterator:
         if isinstance(item, BaseException):
             raise item
         yield item
+
+
+def _read_rgb(path: str) -> Optional[np.ndarray]:
+    """The original RGB pixels of an image to annotate (Pillow), or None."""
+    from PIL import Image
+
+    try:
+        with Image.open(path) as img:
+            return np.asarray(img.convert('RGB'))
+    except (OSError, ValueError):
+        return None

@@ -5,8 +5,10 @@ Counterpart of ``multigriddet_tpu/inference/engine.py``.  Forward, decode
 and NMS run as one fused step on the device (``make_infer_step``); image
 decoding, letterboxing, host WBF (``detection.use_wbf``), the letterbox
 inverse of the (at most ``max_boxes``) detections and drawing stay on the
-host.  ``detection.link_format: yuv420`` sends the file path's pixels as
-planar YCbCr 4:2:0, half the bytes of RGB.  Runs on ``cuda`` unless
+host, or, for JPEG files on the card, to nvJPEG and the card's letterbox
+kernels (:meth:`MultiGridInference.detect_files`).
+``detection.link_format: yuv420`` sends the file path's pixels as planar
+YCbCr 4:2:0, half the bytes of RGB.  Runs on ``cuda`` unless
 ``device='cpu'`` is passed.  Pillow and OpenCV are imported where they
 are used.
 """
@@ -23,13 +25,31 @@ import numpy as np
 import torch
 
 from ..config import build_model_for_inference, resolve_compute_dtype
-from ..data.annotations import letterbox_image
+from ..data.annotations import letterbox_image, pad_batch, pil_available
 from ..device import resolve_device
 from ..ops.geometry import canvas_boxes_to_image
 from ..training.steps import fetch_detections, make_infer_step
 from ..utils.visualization import draw_boxes, get_colors
 
 _IMG_EXTS = ('.jpg', '.jpeg', '.png', '.bmp', '.webp')
+
+
+def _need_pil(what: str):
+    """Raise a clear error where a drawing needs Pillow and it is missing."""
+    if not pil_available():
+        raise ImportError(
+            f'{what}, and this host has none; on the card JPEG files decode '
+            f'without it (detect_files, or predict_image with --no-save '
+            f'--no-show: ROADMAP item 17)')
+
+
+def _can_draw() -> bool:
+    """Whether :func:`draw_boxes` has OpenCV or Pillow to draw with."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return pil_available()
+    return True
 
 
 def _empty_result():
@@ -190,23 +210,35 @@ class MultiGridInference:
 
     def detect_files(self, paths: List[str], batch_size: int = 16,
                      num_workers: int = 8, pipeline_depth: int = 4):
-        """File-based batched detection on the native loader.
+        """File-based batched detection.
 
-        The native loader (``data/native.py``) decodes JPEGs and
-        letterboxes on native threads straight into the fused step, in
-        planar 4:2:0 with ``link_format: yuv420``; a slot it rejects is
-        retried with PIL, and the last short chunk is padded to
-        ``batch_size``.  A list that is not all JPEG, or a host without
-        the native loader, goes through :meth:`detect_batch` instead.
-        Pipelined like :meth:`detect_batch`.  Returns (boxes, classes,
-        scores) per path in original pixels; unreadable files give empty
-        results.
+        On the card every file is decoded by nvJPEG and letterboxed by the
+        card's kernels (``data/jpeg_cuda.py``); on the CPU an all-JPEG
+        list goes through the native loader (``data/native.py``) on native
+        threads.  Either feeds the fused step, in planar 4:2:0 with
+        ``link_format: yuv420``; a slot the decoder rejects (a PNG, a
+        corrupt file) is retried with PIL where Pillow imports, and the
+        last short chunk is padded to ``batch_size``.  On the CPU a list
+        that is not all JPEG, or a host without the native loader, goes
+        through :meth:`detect_batch` instead.  Pipelined like
+        :meth:`detect_batch`.  Returns (boxes, classes, scores) per path in
+        original pixels; unreadable files give empty results.
         """
-        from ..data import native
+        from ..data import jpeg_cuda, native
 
         all_jpeg = all(p.lower().endswith(('.jpg', '.jpeg')) for p in paths)
-        if not all_jpeg or not native.native_available():
+        on_card = self.device.type == 'cuda'
+        if not on_card and not (all_jpeg and native.native_available()):
             return self._detect_files_pil(paths, batch_size, pipeline_depth)
+        if on_card:
+            load_rgb = jpeg_cuda.load_letterbox_batch_cuda
+            load_yuv = jpeg_cuda.load_letterbox_yuv_batch_cuda
+            kw = {'device': self.device}
+        else:
+            load_rgb = native.load_letterbox_batch
+            load_yuv = native.load_letterbox_yuv_batch
+            kw = {'nthreads': num_workers}
+        retry = pil_available()
         use_yuv = (self._infer_yuv is not None
                    and self.input_hw[0] % 2 == 0
                    and self.input_hw[1] % 2 == 0)
@@ -215,21 +247,19 @@ class MultiGridInference:
         for start in range(0, len(paths), batch_size):
             chunk = paths[start:start + batch_size]
             if use_yuv:
-                ys, cbs, crs, metas, ok = native.load_letterbox_yuv_batch(
-                    chunk, self.input_hw, num_workers)
+                ys, cbs, crs, metas, ok = load_yuv(chunk, self.input_hw,
+                                                   **kw)
                 parts = [ys, cbs, crs]
             else:
-                imgs, metas, ok = native.load_letterbox_batch(
-                    chunk, self.input_hw, num_workers)
+                imgs, metas, ok = load_rgb(chunk, self.input_hw, **kw)
                 parts = [imgs]
-            if len(chunk) < batch_size:    # one shape for every chunk
-                parts = [np.concatenate(
-                    [p, np.zeros((batch_size - len(chunk), *p.shape[1:]),
-                                 np.uint8)], axis=0) for p in parts]
+            # one shape for every chunk
+            parts = [pad_batch(p, batch_size) for p in parts]
             sizes = [(int(m[4]), int(m[3])) if good else None
                      for m, good in zip(metas, ok)]
-            for i in np.where(~ok)[0]:
-                self._retry_slot_pil(chunk[i], i, parts, sizes, use_yuv)
+            if retry:
+                for i in np.where(~ok)[0]:
+                    self._retry_slot_pil(chunk[i], i, parts, sizes, use_yuv)
             if use_yuv:
                 outs = self._infer_yuv(*(self._to_device(p) for p in parts))
             else:
@@ -242,7 +272,7 @@ class MultiGridInference:
         return results
 
     def _retry_slot_pil(self, path, i, parts, sizes, use_yuv):
-        """Decode slot ``i`` with PIL after the native loader rejected it
+        """Decode slot ``i`` with PIL after the JPEG decoder rejected it
         (PNG/BMP/WebP content under a .jpg name); an unreadable file keeps
         its empty result."""
         from PIL import Image
@@ -256,36 +286,82 @@ class MultiGridInference:
             return
         if use_yuv:
             from ..ops.yuv import rgb_to_yuv420_np
-            for p, plane in zip(parts, rgb_to_yuv420_np(arr)):
-                p[i] = plane
+            planes = rgb_to_yuv420_np(arr)
         else:
-            parts[0][i] = arr
+            planes = (arr,)
+        for p, plane in zip(parts, planes):
+            p[i] = (torch.from_numpy(np.array(plane)).to(p.device)
+                    if isinstance(p, torch.Tensor) else plane)
         sizes[i] = (ih, iw)
 
     def predict_image(self, path: str, output_dir: Optional[str] = None,
                       show: bool = False):
-        from PIL import Image
+        """Detect on one image file and draw the detections; save or show
+        the drawing.  Returns ``(drawing, (boxes, classes, scores))``.
 
-        image = Image.open(path)
-        t0 = time.time()
-        boxes, classes, scores = self.detect(image)
-        dt = time.time() - t0
+        On the card a JPEG goes through :meth:`detect_files` (nvJPEG and
+        the card's letterbox) and is drawn on nvJPEG's full-size RGB
+        (Pillow's where nvJPEG rejects the file and Pillow imports); the
+        drawing is None where neither OpenCV nor Pillow imports.  Saving
+        or showing needs Pillow, and so does reading any other file."""
+        if output_dir or show:
+            _need_pil('predict_image needs Pillow to save or show the '
+                      'annotated image')
+        if (self.device.type == 'cuda'
+                and path.lower().endswith(('.jpg', '.jpeg'))):
+            t0 = time.time()
+            boxes, classes, scores = self.detect_files([path],
+                                                       batch_size=1)[0]
+            dt = time.time() - t0
+            rgb = self._card_rgb(path)
+        else:
+            _need_pil(f'predict_image needs Pillow to read {path}')
+            from PIL import Image
+
+            image = Image.open(path)
+            t0 = time.time()
+            boxes, classes, scores = self.detect(image)
+            dt = time.time() - t0
+            rgb = np.asarray(image.convert('RGB'))
         print(f'{os.path.basename(path)}: {len(boxes)} objects '
               f'in {dt*1000:.1f} ms')
-        annotated = draw_boxes(np.asarray(image.convert('RGB')), boxes,
-                               classes, scores, self.class_names,
-                               self.colors)
+        annotated = (draw_boxes(rgb, boxes, classes, scores,
+                                self.class_names, self.colors)
+                     if rgb is not None and _can_draw() else None)
+        if output_dir or show:
+            if annotated is None:
+                raise OSError(f'cannot read {path}')
+            from PIL import Image
+            drawing = Image.fromarray(annotated)
         if output_dir:
             os.makedirs(output_dir, exist_ok=True)
             out_path = os.path.join(output_dir, os.path.basename(path))
-            Image.fromarray(annotated).save(out_path)
+            drawing.save(out_path)
             print(f'Saved to {out_path}')
         if show:
             try:
-                Image.fromarray(annotated).show()
+                drawing.show()
             except OSError as exc:  # headless host: warn, don't fail
                 print(f'WARNING: could not display image: {exc}')
         return annotated, (boxes, classes, scores)
+
+    def _card_rgb(self, path: str) -> Optional[np.ndarray]:
+        """A JPEG's full-size RGB to draw on: nvJPEG's, or Pillow's for a
+        file nvJPEG rejects where Pillow imports; None if neither reads
+        it."""
+        from ..data.jpeg_cuda import decode_files
+
+        (image,), _ = decode_files([path], self.device)
+        if image is not None:    # [H, W, 3], or [H, W, 1] for a gray file
+            return image.expand(-1, -1, 3).contiguous().cpu().numpy()
+        if not pil_available():
+            return None
+        from PIL import Image
+        try:
+            with Image.open(path) as img:
+                return np.asarray(img.convert('RGB'))
+        except (OSError, ValueError):
+            return None
 
     def predict_directory(self, directory: str,
                           output_dir: Optional[str] = None,
@@ -293,6 +369,8 @@ class MultiGridInference:
         """Annotate every image in a directory; detection runs through the
         pipelined :meth:`detect_files`.  Unreadable files give empty
         detections with a warning."""
+        _need_pil('predict_directory needs Pillow to read and draw the '
+                  'annotated images')
         from PIL import Image
 
         paths = sorted(
