@@ -76,10 +76,15 @@
    backward, optimizer) with CUDA events, 20 steps after 3 warm-up, on a
    resident batch, and the ops the encoder launches, also at mosaic's
    box counts.
-8. Overfit (``tools/validate_learning.py`` on the card):
-   ``multigriddet_tiny`` trains 600 epochs at b8 on 16 synthetic 128x128
-   frames of two classes, then the fused infer step and ``calculate_map``
-   score it: mAP50 must reach 0.9.
+8. Overfit: the ``learning`` mode of ``multigriddet_tpu_torch.validate``
+   (``tools/validate_learning.py`` on the card): the tool's 16 PIL-written
+   128x128 JPEGs of two classes, read through nvJPEG; ``multigriddet_tiny``
+   trains 600 epochs at b8, then the tool's scoring loop (the fused infer
+   step, ``calculate_map``) scores it through ``xla`` and ``pallas_fused``:
+   mAP50 must reach 0.9 on both.  The run must launch ``ycc_to_rgb`` and
+   ``letterbox_yuv420`` (its input path, counted into the kernels line);
+   both are then held bit-equal to their plain versions on a batch of the
+   set's own files at 128.
 
 9. Zoo: each preset beyond Darknet53 (``multigriddet_darknet_spp``,
    ``_darknet_lite``, ``_csp_darknet``, ``_darknet_panet``, ``_resnet``,
@@ -165,6 +170,19 @@
     JPEG slots must equal an all-JPEG batch's; the letterbox launch
     counts of (c) go into the kernels line.
 
+14. Validate: ``python -m multigriddet_tpu_torch.validate`` at a cut
+    budget: the ``flagship`` mode (``multigriddet_darknet``, bfloat16, the
+    tools' 200-image shapes set through nvJPEG with mosaic, flips and
+    zoom, Adam under the warmup cosine) for 6 epochs and ``presets
+    mobile`` for 4 (the tools' 3-epoch warmup and one more), each scored
+    by the tools' loop through ``xla`` and ``pallas_fused``: the loss
+    falls, both mAPs are printed, and the ``pallas_fused`` detections of
+    every scored chunk equal the plain pop-max on the trained weights'
+    pool.  Each run must launch ``ycc_to_rgb`` and ``letterbox_yuv420``
+    (counted into the kernels line); both are then held bit-equal to
+    their plain versions on a batch of the set's own files at 256.  The
+    full budgets (120 and 60 epochs) are the module's own commands.
+
 ``--step-times CHECKOUT ...`` only times the darknet serve and train
 steps of the port in each checkout given, one process each, and exits:
 the way to compare two commits on one card (parent, change, change,
@@ -172,8 +190,9 @@ parent).
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
-line, when there is no GPU or any phase fails.  Needs no YAML, Pillow or
-msgpack, and imports nothing of JAX.
+line, when there is no GPU or any phase fails.  Needs no YAML or msgpack;
+phases 8 and 14 draw their sets and letterbox the scored images with
+Pillow, as the JAX tools do.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1749,107 +1768,66 @@ def phase_train(dev, smi):
 
 
 def phase_overfit_map(dev, smi):
-    """Phase 8 (ROADMAP item 11): ``tools/validate_learning.py`` on the
-    card.  ``multigriddet_tiny`` (one anchor a level) trains for 600
-    epochs at b8 with Adam 2e-3 and augmentation off on 16 128x128 frames
-    of two classes (a dark gray field, one red or green box; painted with
-    numpy and fed through the loader's ``.npy`` disk cache, then the
-    device bank), then the fused infer step (confidence 0.15, 10 boxes)
-    and ``calculate_map`` score it.  Fails below mAP50 ``MAP50_MIN``."""
+    """Phase 8 (ROADMAP item 11): the ``learning`` mode of
+    ``multigriddet_tpu_torch.validate`` (``tools/validate_learning.py``)
+    on the card.  The tool's 16 PIL-written 128x128 JPEGs of two classes
+    (a dark gray field, one red or green box) are read through nvJPEG and
+    the ``csrc/jpeg.cu`` kernels; ``multigriddet_tiny`` (one anchor a
+    level, flax's initializers) trains for ``MAP_EPOCHS`` epochs at b8
+    with Adam 2e-3 and augmentation off, then the tool's scoring loop
+    (Pillow's letterbox, the fused infer step at confidence 0.15 and 10
+    boxes, one image at a time, ``calculate_map`` at IoU 0.5) scores it
+    through ``xla`` and ``pallas_fused``.  Fails below mAP50
+    ``MAP50_MIN`` on either, or where the run launched no pop-max,
+    ``ycc_to_rgb`` or ``letterbox_yuv420``; the two JPEG kernels are then
+    held against their plain versions on the set's own files
+    (``validate_jpeg_check``).  Returns the report with the launches of
+    the run."""
+    import dataclasses
     import shutil
     import numpy as np
-    import torch
-    from multigriddet_tpu_torch.config import create_optimizer_from_config
-    from multigriddet_tpu_torch.data import MultiGridDataGenerator
-    from multigriddet_tpu_torch.evaluation import calculate_map
-    from multigriddet_tpu_torch.losses import LossConfig
-    from multigriddet_tpu_torch.models import (create_model,
-                                               load_flax_variables,
-                                               random_flax_variables)
-    from multigriddet_tpu_torch.training import (create_train_state,
-                                                 fetch_detections,
-                                                 make_infer_step,
-                                                 make_train_step)
+    from multigriddet_tpu_torch.data import load_annotation_lines
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.validate import LEARNING, run, write_set
     t0 = time.perf_counter()
     root = os.path.join(REPO, 'build', 'chip_smoke_overfit')
     shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    rng = np.random.RandomState(0)
-    canvases, boxes, lines = [], [], []
-    for i in range(MAP_FRAMES):
-        canvas = np.full((*MAP_HW, 3), rng.randint(0, 60), np.uint8)
-        x1, y1 = rng.randint(5, 60), rng.randint(5, 60)
-        w, h = rng.randint(30, 60), rng.randint(30, 60)
-        cls = i % 2
-        # PIL's rectangle [x1, y1, x1 + w, y1 + h] includes both ends
-        canvas[y1:y1 + h + 1, x1:x1 + w + 1] = ((230, 30, 30) if cls == 0
-                                                else (30, 230, 30))
-        bx = np.zeros((4, 5), np.float32)
-        bx[0] = [x1, y1, x1 + w, y1 + h, cls]
-        canvases.append(canvas)
-        boxes.append(bx)
-        lines.append(f'frames/f{i:02d}.jpg {x1},{y1},{x1 + w},{y1 + h},'
-                     f'{cls}')
-    canvases, boxes = np.stack(canvases), np.stack(boxes)
-    lines = write_frames(root, 'ann.txt', lines, canvases, boxes, 'yuv420',
-                         hw=MAP_HW, max_boxes=4)
-    anchors = [np.array([[48, 48]], np.float32),
-               np.array([[24, 24]], np.float32),
-               np.array([[12, 12]], np.float32)]
-    gen = MultiGridDataGenerator(
-        lines, anchors, 2, MAP_HW, batch_size=8, max_boxes=4,
-        augment={'enabled': False}, train=True, seed=0, num_workers=2,
-        disk_cache_dir=os.path.join(root, 'cache'),
-        cache_images_device=True, device=dev)
-    model = create_model('multigriddet_tiny', num_anchors=(1, 1, 1),
-                         num_classes=2)
-    load_flax_variables(model, *random_flax_variables(model, seed=0))
-    model.to(dev).train()
-    opt = create_optimizer_from_config(
-        {'training': {'learning_rate': MAP_LR},
-         'optimizer': {'type': 'adam', 'beta_1': 0.9, 'beta_2': 0.999,
-                       'epsilon': 1e-8},
-         'lr_schedule': {'type': 'constant'}}, model.parameters())
-    state = create_train_state(model, opt)
-    step = make_train_step(anchors, 2, MAP_HW, LossConfig(
-        loss_option=2, coord_scale=5.0, no_object_scale=0.5))
-    losses = []
-    t_train = time.perf_counter()
-    for epoch in range(MAP_EPOCHS):
-        for images, y_true, _ in gen:
-            state, m = step(state, images, y_true)
-        if epoch % 100 == 0 or epoch == MAP_EPOCHS - 1:
-            losses.append(float(m['loss']))
-    train_s = time.perf_counter() - t_train
-    gen.close()
-    model.eval()
-    infer = make_infer_step(model, anchors, MAP_HW, confidence=0.15,
-                            max_boxes=10, pre_nms_top_k=64)
-    preds, gts = {}, {}
-    for start in range(0, MAP_FRAMES, 8):
-        bx, cl, sc, va = fetch_detections(infer(
-            torch.from_numpy(canvases[start:start + 8]).to(dev)))
-        for j in range(len(va)):
-            i = start + j
-            preds[i] = {'boxes': bx[j][va[j]], 'classes': cl[j][va[j]],
-                        'scores': sc[j][va[j]]}
-            b = boxes[i][:1]
-            gts[i] = {'boxes': np.stack([b[:, 0], b[:, 1], b[:, 2] - b[:, 0],
-                                         b[:, 3] - b[:, 1]], -1),
-                      'classes': b[:, 4].astype(np.int32)}
-    map50 = float(calculate_map(preds, gts, 2, iou_thresholds=[0.5])['mAP50'])
+    task = dataclasses.replace(LEARNING, epochs=MAP_EPOCHS, lr=MAP_LR)
+    ann = write_set(task, root)
+    cuda_nms.popmax_nms.launches = 0
+    reset_jpeg_launches()
+    done = run(task, ann, dev, log=log)
+    launches = cuda_nms.popmax_nms.launches
+    jpeg_launches = read_jpeg_launches('overfit')
+    check = validate_jpeg_check(
+        dev, load_annotation_lines(ann, shuffle=False)[:task.batch_size],
+        task.hw, 'overfit')
     shutil.rmtree(root, ignore_errors=True)
+    res = done.result
+    spe = res['steps'] // MAP_EPOCHS
+    losses = [done.trained.losses[(e + 1) * spe - 1]
+              for e in range(MAP_EPOCHS)
+              if e % 100 == 0 or e == MAP_EPOCHS - 1]
+    maps = {k: v['mAP50'] for k, v in res['scores'].items()}
+    map50 = min(maps.values())
     seconds = time.perf_counter() - t0
-    log(f'[overfit] multigriddet_tiny @{MAP_HW[0]}, {MAP_FRAMES} frames, '
-        f'{MAP_EPOCHS} epochs at b8 (Adam {MAP_LR}, float32): loss every '
-        f'100 epochs {[round(v, 4) for v in losses]}, final '
-        f'{losses[-1]:.4f}; mAP50 {map50:.4f} (limit {MAP50_MIN}); '
-        f'training {train_s:.1f} s, phase {seconds:.1f} s; card: {smi}')
-    if not (np.isfinite(losses).all() and map50 >= MAP50_MIN):
-        raise AssertionError(f'overfit: mAP50 {map50} < {MAP50_MIN}, '
-                             f'losses {losses}')
-    return {'map50': map50, 'final_loss': losses[-1], 'losses': losses,
-            'train_seconds': train_s, 'seconds': seconds}
+    log(f'[overfit] multigriddet_tiny @{MAP_HW[0]}, {MAP_FRAMES} frames '
+        f'(the tool\'s PIL JPEGs through nvJPEG), {MAP_EPOCHS} epochs at '
+        f'b8 (Adam {MAP_LR}, float32): loss every 100 epochs '
+        f'{[round(v, 4) for v in losses]}, final {losses[-1]:.4f}; mAP50 '
+        f'{maps} (limit {MAP50_MIN}); pop-max launches {launches}, '
+        f'jpeg.cu launches {jpeg_launches}; training '
+        f'{res["seconds"]:.1f} s, phase {seconds:.1f} s; card: {smi}')
+    if not (np.isfinite(losses).all() and map50 >= MAP50_MIN
+            and launches > 0):
+        raise AssertionError(f'overfit: mAP50 {maps} < {MAP50_MIN} or no '
+                             f'pop-max launch ({launches}), losses '
+                             f'{losses}')
+    return {'map50': map50, 'map50_by_backend': maps,
+            'final_loss': losses[-1], 'losses': losses,
+            'popmax_launches': launches, 'jpeg_launches': jpeg_launches,
+            'jpeg_check': check, 'train_seconds': res['seconds'],
+            'images_per_s': res['images_per_s'], 'seconds': seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -3463,6 +3441,198 @@ def phase_jpeg(dev, smi, build=None):
             'seconds': seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the learning validations
+# ---------------------------------------------------------------------------
+
+# cut budgets of python -m multigriddet_tpu_torch.validate (the full runs,
+# 120 and 60 epochs, are their own commands on the card)
+# (4 epochs: the tools' 3-epoch warmup and one of cosine)
+VALIDATE_FLAGSHIP_EPOCHS, VALIDATE_MOBILE_EPOCHS = 6, 4
+# the jpeg.cu kernels of the learning validations' input path: the train
+# generator's yuv420 link decodes with nvJPEG (ycc_to_rgb) and letterboxes
+# with letterbox_yuv420 (letterbox_rgb is counted, never required)
+JPEG_PATH_KERNELS = ('ycc_to_rgb', 'letterbox_yuv420')
+
+
+def reset_jpeg_launches():
+    from multigriddet_tpu_torch.ops import cuda_jpeg
+    for name in ('ycc_to_rgb', 'letterbox_rgb', 'letterbox_yuv420'):
+        getattr(cuda_jpeg, name).launches = 0
+
+
+def read_jpeg_launches(label):
+    """The jpeg.cu launches since ``reset_jpeg_launches``; fails where a
+    kernel of the validations' input path was launched no time."""
+    from multigriddet_tpu_torch.ops import cuda_jpeg
+    got = {name: getattr(cuda_jpeg, name).launches
+           for name in ('ycc_to_rgb', 'letterbox_rgb', 'letterbox_yuv420')}
+    if not all(got[name] for name in JPEG_PATH_KERNELS):
+        raise AssertionError(f'{label}: the run did not go through '
+                             f'{JPEG_PATH_KERNELS}: launches {got}')
+    return got
+
+
+def validate_jpeg_check(dev, lines, hw, label):
+    """Hold the jpeg.cu kernels of a learning validation's input path
+    against their plain versions at that path's own shapes: one batch of
+    the set's own JPEGs at the task's canvas, decoded as the train
+    generator decodes them (``jpeg_cuda.decode_files``) and letterboxed to
+    4:2:0 by ``letterbox_yuv420``.  Each image against ``ycc_to_rgb_plain``
+    on nvJPEG's planes of the same file, and the planes against
+    ``letterbox_rgb`` on the CPU then ``rgb_to_yuv420_plain``: bit for
+    bit, with metas and ok equal.  Launches made here are not counted."""
+    import numpy as np
+    from multigriddet_tpu_torch.data import jpeg_cuda, parse_annotation_line
+    from multigriddet_tpu_torch.ops import cuda_jpeg
+    paths = [parse_annotation_line(line)[0] for line in lines]
+    images, sizes = jpeg_cuda.decode_files(paths, dev, hw)
+    max_err, layouts = 0, set()
+    with cuda_jpeg.decoder(dev) as dec:
+        for path, image, size in zip(paths, images, sizes):
+            with open(path, 'rb') as f:
+                data = f.read()
+            hd = dec.header(data)
+            if image is None or isinstance(hd, int) \
+                    or hd[3] not in cuda_jpeg.FACTORS:
+                raise AssertionError(f'{label}: {path} is not a colour JPEG '
+                                     f'that nvJPEG decodes ({hd})')
+            planes = []
+            again, _, _ = dec.decode(data, hw, planes)
+            d = cuda_jpeg.divisor(*size, hw)
+            want = cuda_jpeg.ycc_to_rgb_plain(
+                *(p.cpu() for p in planes), cuda_jpeg.FACTORS[hd[3]], d)
+            for got in (image, again):
+                max_err = max(max_err, int((got.cpu().int() - want.int())
+                                           .abs().max()))
+            layouts.add((hd[3], d))
+    y, cb, cr, metas, ok = cuda_jpeg.letterbox_yuv420(images, hw, dev, sizes)
+    rgb, want_metas, want_ok = cuda_jpeg.letterbox_rgb(
+        [im.cpu() for im in images], hw, 'cpu', sizes)
+    for got, want in zip((y, cb, cr), cuda_jpeg.rgb_to_yuv420_plain(rgb)):
+        max_err = max(max_err, int((got.cpu().int() - want.int())
+                                   .abs().max()))
+    if max_err or not (np.array_equal(metas, want_metas) and np.array_equal(
+            ok, want_ok) and ok.all()):
+        raise AssertionError(f'{label}: the jpeg.cu kernels differ from '
+                             f'their plain versions on the set\'s JPEGs at '
+                             f'{hw} by {max_err} (ok {ok.tolist()})')
+    log(f'[{label}] jpeg.cu on {len(paths)} of the set\'s own JPEGs at '
+        f'{hw[0]}x{hw[1]}: ycc_to_rgb (layout, divisor) {sorted(layouts)} '
+        f'and letterbox_yuv420 bit-equal to their plain versions')
+    return {'images': len(paths), 'hw': list(hw),
+            'layouts': sorted(layouts), 'max_abs_err': max_err}
+
+
+def popmax_agreement(done, lines, dev) -> int:
+    """Hold a validation run's ``pallas_fused`` detections, chunk by
+    chunk, against ``popmax_nms_plain`` on the same trained weights' pool:
+    keep set, order, classes, boxes and scores equal.  Returns the number
+    of kept boxes checked."""
+    import numpy as np
+    import torch
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.training.steps import candidate_pool
+    from multigriddet_tpu_torch.validate import scoring_batches
+    task = done.trained.task
+    model = done.trained.state.model.eval()
+    chunks = done.detections['pallas_fused']
+    kept = 0
+    for (start, batch, _), got in zip(scoring_batches(task, lines), chunks):
+        with torch.inference_mode():
+            x = torch.from_numpy(batch).to(dev).float() / 255.0
+            pool = candidate_pool(model, x, task.anchors, task.hw)
+            plain = cuda_nms.popmax_nms_plain(
+                *pool, task.confidence, THR, task.score_max_boxes, 'diou',
+                True)
+        for what, a, b in zip(('boxes', 'classes', 'scores', 'valid'), got,
+                              (t.cpu().numpy() for t in plain)):
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f'{task.name}: pallas_fused {what} of the chunk at '
+                    f'{start} differ from the plain pop-max')
+        kept += int(got[3].sum())
+    if len(chunks) != -(-len(lines) // task.score_batch):
+        raise AssertionError(f'{task.name}: {len(chunks)} chunks scored')
+    return kept
+
+
+def phase_validate(dev, smi):
+    """Phase 14: ``python -m multigriddet_tpu_torch.validate`` at a cut
+    budget.  The flagship mode (``multigriddet_darknet``, bfloat16,
+    ``bn_momentum`` 0.9, the tools' 200-image shapes set written with
+    Pillow and read through nvJPEG, mosaic + flips + zoom, Adam under the
+    warmup cosine) for ``VALIDATE_FLAGSHIP_EPOCHS`` epochs and the
+    ``presets mobile`` mode for ``VALIDATE_MOBILE_EPOCHS``, each scored by
+    the tools' loop through ``xla`` and ``pallas_fused``: the mean loss of
+    the last epoch must lie below epoch 0's, both mAPs are printed, and
+    every chunk's ``pallas_fused`` detections must equal the plain pop-max
+    on the trained weights' pool.  Each run must launch ``ycc_to_rgb`` and
+    ``letterbox_yuv420`` (its input path), which are then held against
+    their plain versions on the set's own 256x256 files
+    (``validate_jpeg_check``).  Returns the report with the launches of
+    the runs."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    from multigriddet_tpu_torch.data import load_annotation_lines
+    from multigriddet_tpu_torch.ops import cuda_nms
+    from multigriddet_tpu_torch.validate import (FLAGSHIP, PRESETS, run,
+                                                 write_set)
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, 'build', 'chip_smoke_validate')
+    shutil.rmtree(root, ignore_errors=True)
+    ann = write_set(FLAGSHIP, root)
+    lines = load_annotation_lines(ann, shuffle=False)
+    report = {'popmax_launches': 0,
+              'jpeg_launches': {'ycc_to_rgb': 0, 'letterbox_rgb': 0,
+                                'letterbox_yuv420': 0}}
+    for task in (dataclasses.replace(FLAGSHIP,
+                                     epochs=VALIDATE_FLAGSHIP_EPOCHS),
+                 dataclasses.replace(PRESETS['mobile'],
+                                     epochs=VALIDATE_MOBILE_EPOCHS)):
+        cuda_nms.popmax_nms.launches = 0
+        reset_jpeg_launches()
+        done = run(task, ann, dev, log=log)
+        launches = cuda_nms.popmax_nms.launches
+        jpeg_launches = read_jpeg_launches(task.name)
+        report['popmax_launches'] += launches
+        for name, n in jpeg_launches.items():
+            report['jpeg_launches'][name] += n
+        res = done.result
+        kept = popmax_agreement(done, lines, dev)
+        first, last = res['epoch_losses'][0], res['epoch_losses'][-1]
+        scores = res['scores']
+        log(f'[validate] {task.name} ({task.model}, '
+            f'{res["params"] / 1e6:.1f}M) {task.epochs} epochs of '
+            f'{res["steps"] // task.epochs} steps: epoch-mean loss '
+            f'{first:.3f} -> {last:.3f}, final {res["final_loss"]:.3f}; '
+            f'mAP50 / mAP xla {scores["xla"]["mAP50"]:.4f} / '
+            f'{scores["xla"]["mAP"]:.4f}, pallas_fused '
+            f'{scores["pallas_fused"]["mAP50"]:.4f} / '
+            f'{scores["pallas_fused"]["mAP"]:.4f}; pallas_fused equal to '
+            f'the plain pop-max on {kept} kept boxes; {launches} pop-max '
+            f'launches, jpeg.cu {jpeg_launches}; training '
+            f'{res["seconds"]:.1f} s '
+            f'({res["images_per_s"]:.1f} img/s); card: {smi}')
+        if not (np.isfinite(res['epoch_losses']).all() and last < first
+                and launches > 0):
+            raise AssertionError(f'{task.name}: loss {first} -> {last}, '
+                                 f'{launches} pop-max launches')
+        report[task.name] = {k: res[k] for k in (
+            'epochs', 'steps', 'seconds', 'images_per_s', 'final_loss',
+            'epoch_losses', 'scores')}
+        report[task.name]['popmax_launches'] = launches
+        report[task.name]['kept_checked'] = kept
+        report[task.name]['jpeg_launches'] = jpeg_launches
+        del done
+    report['jpeg_check'] = validate_jpeg_check(
+        dev, lines[:FLAGSHIP.batch_size], FLAGSHIP.hw, 'validate')
+    shutil.rmtree(root, ignore_errors=True)
+    report['seconds'] = time.perf_counter() - t0
+    log(f'[validate] phase {report["seconds"]:.1f} s')
+    return report
+
 
 _STEP_TIMES_CHILD = """
 import importlib.util, json, sys
@@ -3582,16 +3752,20 @@ def main(argv=None) -> int:
         spatial = phase_spatial(dev, smi)
     with timer.phase('13 jpeg'):
         jpeg = phase_jpeg(dev, smi, build)
+    with timer.phase('14 validate'):
+        validate = phase_validate(dev, smi)
     log('[phases]\n' + timer.summary())
 
     src = 'multigriddet_tpu_torch/csrc/nms.cu'
     replaces = {'popmax_nms': 'multigriddet_tpu/ops/pallas_nms.py:115',
                 'greedy_nms': 'multigriddet_tpu/ops/pallas_nms.py:34'}
     path_of = {'popmax_nms': 'pallas_fused', 'greedy_nms': 'pallas'}
-    # the serve run's launches, the zoo's (one pop-max a served batch) and
-    # the sp infer path's (both ranks)
+    # the serve run's launches, the zoo's (one pop-max a served batch),
+    # the sp infer path's (both ranks) and the learning validations'
+    # pallas_fused scoring (phases 8 and 14)
     more = {'popmax_nms': zoo['popmax_launches']
-            + spatial['popmax_launches'], 'greedy_nms': 0}
+            + spatial['popmax_launches'] + overfit['popmax_launches']
+            + validate['popmax_launches'], 'greedy_nms': 0}
     kernels = [{'name': k['name'], 'route': 'cuda', 'source': src,
                 'replaces': replaces[k['name']],
                 'launches': (launches[path_of[k['name']]][k['name']]
@@ -3607,8 +3781,14 @@ def main(argv=None) -> int:
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'multigriddet_tpu_torch/csrc/jpeg.cu',
-            'replaces': replaces, 'launches': jpeg['launches'][name],
-            'max_abs_err': jpeg['fixtures']['max_abs_err'], 'ms': k['ms'],
+            'replaces': replaces,
+            'launches': (jpeg['launches'][name]
+                         + overfit['jpeg_launches'][name]
+                         + validate['jpeg_launches'][name]),
+            'max_abs_err': max(jpeg['fixtures']['max_abs_err'],
+                               overfit['jpeg_check']['max_abs_err'],
+                               validate['jpeg_check']['max_abs_err']),
+            'ms': k['ms'],
             'plain_ms': k['plain_ms'], 'bound_ms': k['bound_ms'],
             'bound_by': k['bound_by'], 'library_ms': None})
     if args.report:
@@ -3625,6 +3805,7 @@ def main(argv=None) -> int:
                        'overfit_map': overfit, 'zoo': zoo,
                        'export': export, 'data_parallel': data_parallel,
                        'spatial_partition': spatial, 'jpeg': jpeg,
+                       'validate': validate,
                        'phase_seconds': timer.totals,
                        'kernel_pairs': {k['name']: k['pairs']
                                         for k in ktimes},

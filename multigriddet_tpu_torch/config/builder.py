@@ -378,3 +378,40 @@ def create_optimizer_from_config(
     inner = _make_optimizer(kind, float(lr(0)) if schedule else float(lr),
                             opt_cfg, list(params))
     return TrainOptimizer(inner, schedule, accumulation)
+
+
+def get_model_info(config: Dict[str, Any]) -> Dict[str, Any]:
+    """Config-level model introspection, the JAX package's
+    ``get_model_info`` (reference ``model_builder.py:302-330``).
+
+    The same schema: name, type, architecture, num_classes, input_shape and
+    num_anchors_per_head, read from the ``model.preset`` or
+    ``model.custom`` block without building anything.
+    """
+    model_cfg = config.get('model', {}) or {}
+    info = {
+        'name': model_cfg.get('name', 'unknown'),
+        'type': model_cfg.get('type', 'preset'),
+        'architecture': None,
+        'num_classes': None,
+        'input_shape': None,
+        'num_anchors_per_head': [3, 3, 3],
+    }
+    if info['type'] == 'preset':
+        preset = model_cfg.get('preset', {}) or {}
+        info.update(
+            architecture=preset.get('architecture'),
+            num_classes=preset.get('num_classes'),
+            input_shape=tuple(preset['input_shape'])
+            if preset.get('input_shape') else None)
+    elif info['type'] == 'custom':
+        custom = model_cfg.get('custom', {}) or {}
+        head = custom.get('head', {}) or {}
+        info.update(
+            architecture='custom_{}_{}_{}'.format(
+                (custom.get('backbone', {}) or {}).get('type'),
+                (custom.get('neck', {}) or {}).get('type'),
+                head.get('type')),
+            num_classes=head.get('num_classes', 80),
+            input_shape=tuple(custom.get('input_shape', (608, 608, 3))))
+    return info

@@ -17,7 +17,12 @@ rewrites the same files.  The fixtures:
   an exact .5 tie (36.5 -> 36 half to even, as
   ``tests/test_native_loader.py`` checks);
 * ``corrupt.jpg`` (a JPEG start marker and seeded junk) and
-  ``png_named.jpg`` (PNG content): files the decoders reject.
+  ``png_named.jpg`` (PNG content): files the decoders reject;
+* ``truncated_50.jpg``: the first half of ``photo_420_q90.jpg``'s bytes,
+  cut inside its scan.  libjpeg warns ("Premature end of JPEG file"),
+  inserts the EOI marker that ends the data, and decodes the missing
+  blocks as zero coefficients: the lower half comes out gray, and
+  fastloader reports the file ``ok``.
 
 ``letterbox_ref.npz`` (uncompressed) holds, for each fixture and for
 ``examples/images/dog.jpg`` (read where it lies), at each canvas of
@@ -30,6 +35,12 @@ and ``y``, and the same for the chroma planes in chroma coordinates
 ``n[file, canvas, 0]`` entries of ``rgb`` and ``y`` (index 1: ``cbcr``).
 Full canvases of a dozen files at 608 would be tens of megabytes; the
 positions are derived, not stored, to keep the file under 1 MB.
+
+``truncated_ref.npz`` (compressed) holds fastloader's whole RGB canvases
+of ``truncated_50.jpg`` at ``TRUNCATED_CANVASES`` with their metas and ok
+flags (the gray half is what a decoder that stops at the cut would miss,
+so every pixel is kept).  It is kept apart from ``letterbox_ref.npz``,
+whose files every decoder of the port must read as fastloader does.
 Readers import :func:`positions` from here (Pillow is imported only to
 write the fixtures).
 """
@@ -49,6 +60,8 @@ OUT = os.path.join(TESTS, 'fixtures', 'jpeg')
 DOG = os.path.join(REPO, 'examples', 'images', 'dog.jpg')
 CANVASES = ((608, 608), (416, 416), (128, 128), (64, 64))
 SAMPLES = 1024
+TRUNCATED = 'truncated_50.jpg'
+TRUNCATED_CANVASES = ((416, 416), (128, 128))
 
 
 def photo(seed: int, size=(640, 480)):
@@ -118,6 +131,17 @@ def write_fixtures() -> list:
     return files
 
 
+def write_truncated() -> str:
+    """``truncated_50.jpg``: ``photo_420_q90.jpg`` cut to half its
+    bytes."""
+    with open(os.path.join(OUT, 'photo_420_q90.jpg'), 'rb') as f:
+        data = f.read()
+    path = os.path.join(OUT, TRUNCATED)
+    with open(path, 'wb') as f:
+        f.write(data[:len(data) // 2])
+    return path
+
+
 def content_box(meta, hw):
     """(px, py, nw, nh) of a slot's content from fastloader's metas."""
     scale, px, py, fw, fh = (float(v) for v in meta)
@@ -155,7 +179,8 @@ def positions(name: str, hw, meta):
             (np.concatenate([cy, ecy]), np.concatenate([cx, ecx])))
 
 
-def record(files) -> dict:
+def jax_native_loader():
+    """The JAX package's native loader, built into ``build/native/``."""
     sys.path[:0] = [TESTS, REPO]
     from test_torch_native_oracle import build_jax_library
     from multigriddet_tpu.data import native as jax_native
@@ -164,6 +189,24 @@ def record(files) -> dict:
     jax_native._lib, jax_native._tried = None, False
     if not jax_native.native_available():
         raise SystemExit('the JAX native loader did not build')
+    return jax_native
+
+
+def record_truncated(path: str) -> dict:
+    """fastloader's whole canvases of the truncated file, into
+    ``truncated_ref.npz``."""
+    jax_native = jax_native_loader()
+    ref = {'canvases': np.asarray(TRUNCATED_CANVASES, np.int32)}
+    for ci, hw in enumerate(TRUNCATED_CANVASES):
+        imgs, metas, ok = jax_native.load_letterbox_batch([path], hw)
+        ref[f'rgb_{ci}'], ref[f'metas_{ci}'] = imgs[0], metas[0]
+        ref[f'ok_{ci}'] = ok[0]
+    np.savez_compressed(os.path.join(OUT, 'truncated_ref.npz'), **ref)
+    return ref
+
+
+def record(files) -> dict:
+    jax_native = jax_native_loader()
     paths = files + [DOG]
     names = [os.path.relpath(p, REPO) for p in paths]
     nf, nc = len(paths), len(CANVASES)
@@ -200,6 +243,7 @@ def record(files) -> dict:
 def main():
     files = write_fixtures()
     ref = record(files)
+    record_truncated(write_truncated())
     total = sum(os.path.getsize(os.path.join(OUT, f))
                 for f in os.listdir(OUT))
     for name, ok in zip(ref['files'], ref['ok']):

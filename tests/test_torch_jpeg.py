@@ -481,6 +481,198 @@ def test_recorded_reference_is_fastloaders(name):
                    for y, x in border)
 
 
+TRUNCATED = 'truncated_50.jpg'
+
+
+def truncated_ref():
+    from record_jpeg_fixtures import TRUNCATED_CANVASES
+    ref = np.load(os.path.join(FIXTURES, 'truncated_ref.npz'))
+    assert [tuple(c) for c in ref['canvases'].tolist()] == list(
+        TRUNCATED_CANVASES)
+    return [(tuple(int(v) for v in ref['canvases'][i]), ref[f'rgb_{i}'],
+             ref[f'metas_{i}'], bool(ref[f'ok_{i}']))
+            for i in range(len(TRUNCATED_CANVASES))]
+
+
+def test_truncated_reference_is_fastloaders():
+    """``truncated_ref.npz`` is fastloader's output on the file cut to half
+    its bytes: ``ok``, the full size in the metas, and the lower part of
+    the content gray."""
+    for hw, rgb, metas, ok in truncated_ref():
+        img, _, want_metas, want_ok = jax_canvases(fixture_path(TRUNCATED),
+                                                   hw)
+        assert ok and want_ok and np.array_equal(metas, want_metas)
+        assert metas[3:].tolist() == [640, 480]
+        np.testing.assert_array_equal(rgb, img)
+        _, nw, nh, px, py = cuda_jpeg.geometry(640, 480, hw)
+        content = rgb[py:py + nh, px:px + nw]
+        assert (content[-nh // 3:] == 128).all()
+        assert (content[:nh // 4] != 128).any(-1).mean() > 0.9
+
+
+@pytest.mark.parametrize('link', ['rgb', 'yuv420'])
+def test_truncated_file_on_the_cpu_equals_fastloader(link):
+    """On the CPU the port reads a truncated JPEG as the JAX package's
+    loader does: ``ok``, the metas and the canvas equal."""
+    from multigriddet_tpu.data import HostImageLoader as JaxLoader
+    lines = [f'{fixture_path(TRUNCATED)} 10,12,300,400,1',
+             f'{fixture_path("photo_420_q90.jpg")} 5,5,30,30,0']
+    for hw, rgb, _, _ in truncated_ref():
+        ours = HostImageLoader(lines, hw, max_boxes=4, num_workers=2,
+                               link_format=link, device='cpu')
+        theirs = JaxLoader(lines, hw, max_boxes=4, num_workers=2,
+                           link_format=link)
+        try:
+            got, got_boxes, metas, ok = ours.load_batch(lines,
+                                                        return_metas=True)
+            want, want_boxes = theirs.load_batch(lines)
+        finally:
+            ours.close()
+            theirs.close()
+        assert ok.tolist() == [True, True]
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got_boxes, want_boxes)
+        if link == 'rgb':
+            np.testing.assert_array_equal(got[0][0], rgb)
+
+
+@pytest.mark.parametrize('index', [0, 1], ids=['416', '128'])
+def test_truncated_route_equals_fastloader(index):
+    """The card's route for a truncated file, run on the CPU: libjpeg
+    through Pillow with the EOI marker appended, ``ycc_to_rgb`` on the
+    upsampled planes, the letterbox.  At divisor 1 (416) the canvas is
+    fastloader's exactly; at divisor 2 (128, block means for libjpeg's
+    reduced IDCT) it lies under the mean bound, and the gray part is the
+    same to 1% of the canvas.  Only the truncated fixture is detected as
+    truncated."""
+    from multigriddet_tpu_torch.data import jpeg_cuda
+    hw, rgb, metas, _ = truncated_ref()[index]
+    with open(fixture_path(TRUNCATED), 'rb') as f:
+        data = f.read()
+    image, size = jpeg_cuda.decode_libjpeg(data, 'cpu', hw)
+    assert size == (640, 480)
+    canvas, got_metas, ok = cuda_jpeg.letterbox_rgb([image], hw, 'cpu',
+                                                    [size])
+    assert ok.tolist() == [True] and np.array_equal(got_metas[0], metas)
+    got = canvas[0].numpy()
+    diff = np.abs(got.astype(np.int32) - rgb.astype(np.int32))
+    if cuda_jpeg.divisor(640, 480, hw) == 1:
+        assert not diff.any()
+    else:
+        assert diff.mean() < MEAN_BOUND
+        gray = (got == 128).all(-1) != (rgb == 128).all(-1)
+        assert gray.mean() <= 0.01
+    names = sorted(os.listdir(FIXTURES))
+    flagged = [n for n in names if n.endswith('.jpg') and jpeg_cuda.truncated(
+        open(os.path.join(FIXTURES, n), 'rb').read())]
+    assert flagged == [TRUNCATED]
+
+
+class _FillingDecoder:
+    """Stands in for nvJPEG, which accepts a truncated file and fills its
+    missing part with other pixels (here: Pillow's black)."""
+
+    def __init__(self):
+        self.seen = {}          # decodes kept for when Pillow is hidden
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def decode(self, data, hw=None, planes_out=None):
+        import io
+        if data not in self.seen:
+            from PIL import Image, ImageFile
+            ImageFile.LOAD_TRUNCATED_IMAGES = True
+            try:
+                with Image.open(io.BytesIO(data)) as im:
+                    self.seen[data] = np.array(im.convert('RGB'))
+            finally:
+                ImageFile.LOAD_TRUNCATED_IMAGES = False
+        arr = self.seen[data]
+        d = cuda_jpeg.divisor(arr.shape[1], arr.shape[0], hw) if hw else 1
+        return (cuda_jpeg.reduce_plain(torch.from_numpy(arr), d),
+                (arr.shape[1], arr.shape[0]), None)
+
+
+def test_card_decode_routes_a_truncated_file_through_libjpeg(monkeypatch,
+                                                             capsys):
+    """``decode_files`` on the card (its decoder replaced by one that fills
+    the cut part as nvJPEG does): the truncated file goes to libjpeg
+    through Pillow, with a printed line naming the route, and gives
+    fastloader's canvas; an intact file stays with the card's decoder.
+    Without Pillow the truncated slot is rejected (gray, zero metas, ``ok``
+    False) with a printed line, never given the card's filled pixels."""
+    from multigriddet_tpu_torch.data import jpeg_cuda
+    fake = _FillingDecoder()
+    monkeypatch.setattr(cuda_jpeg, 'decoder', lambda device: fake)
+    hw, rgb, _, _ = truncated_ref()[0]
+    paths = [fixture_path(TRUNCATED), fixture_path('photo_420_q90.jpg')]
+    images, sizes = jpeg_cuda.decode_files(paths, 'cpu', hw)
+    out = capsys.readouterr().out
+    assert 'truncated' in out and 'libjpeg through Pillow' in out
+    assert out.count('WARNING') == 1
+    canvas, _, ok = cuda_jpeg.letterbox_rgb(images, hw, 'cpu', sizes)
+    assert ok.tolist() == [True, True]
+    np.testing.assert_array_equal(canvas[0].numpy(), rgb)
+    intact = fake.decode(open(paths[1], 'rb').read(), hw)[0]
+    assert torch.equal(images[1], intact)
+    fake.decode(open(paths[0], 'rb').read(), hw)
+    hide_pil(monkeypatch)
+    images, sizes = jpeg_cuda.decode_files(paths, 'cpu', hw)
+    out = capsys.readouterr().out
+    assert 'Pillow does not import or read it' in out and 'gray' in out
+    assert out.count('WARNING') == 1
+    assert images[0] is None and sizes[0] is None
+    assert torch.equal(images[1], intact)
+    canvas, metas, ok = cuda_jpeg.letterbox_rgb(images, hw, 'cpu', sizes)
+    assert ok.tolist() == [False, True]
+    assert not metas[0].any() and bool((canvas[0] == 128).all())
+
+
+def test_truncated_file_evaluator_counts_equal_jax(tmp_path):
+    """The evaluator scores a truncated file as the JAX evaluator does
+    (neither marks it failed): the same numbers of images, detections and
+    ground truth, the same classes, and mAP within 1e-6."""
+    from multigriddet_tpu.evaluation import MultiGridEvaluator as JaxEval
+    from multigriddet_tpu_torch.evaluation import MultiGridEvaluator
+    from multigriddet_tpu_torch.models import (create_model,
+                                               random_flax_variables)
+    from multigriddet_tpu_torch.training import save_params
+    from test_torch_evaluator import eval_config
+    model = create_model('multigriddet_tiny', num_anchors=(3, 3, 3),
+                         num_classes=2)
+    params, stats = random_flax_variables(model, seed=5)
+    weights = str(tmp_path / 'weights.msgpack')
+    save_params(weights, {'params': params, 'batch_stats': stats})
+    annotation = tmp_path / 'ann.txt'
+    annotation.write_text(
+        f'{fixture_path(TRUNCATED)} 40,30,300,200,0 100,260,400,470,1\n'
+        f'{fixture_path("photo_420_q90.jpg")} 10,10,200,200,1\n')
+    results = []
+    for make in (lambda c: MultiGridEvaluator(c, device='cpu'), JaxEval):
+        cfg = eval_config(str(tmp_path), str(annotation), weights,
+                          save_results=False)
+        ev = make(cfg)
+        results.append((ev.evaluate(), ev))
+    (got, ours), (want, theirs) = results
+    assert got['num_images'] == want['num_images'] == 2
+    for img in (0, 1):
+        p, q = ours.predictions[img], theirs.predictions[img]
+        assert len(p['boxes']) == len(q['boxes']) > 0, img
+        np.testing.assert_array_equal(p['classes'], q['classes'])
+        assert len(ours.ground_truths[img]['boxes']) == len(
+            theirs.ground_truths[img]['boxes'])
+    np.testing.assert_array_equal(got['gt_counts'], want['gt_counts'])
+    for key in ('mAP', 'mAP50'):
+        assert abs(got[key] - want[key]) <= 1e-6, key
+
+
 def test_cuda_requests_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip('a card is present: the card tests cover it')
@@ -667,6 +859,50 @@ def test_kernels_equal_plain_on_nvjpeg_pixels(cuda_device, hw):
     assert torch.equal(canvas.cpu(), want)
     for g, w in zip((y, cb, cr), (wy, wcb, wcr)):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('link', ['rgb', 'yuv420'])
+def test_truncated_file_on_the_card(cuda_device, link, capsys):
+    """A JPEG cut to half its bytes, read by the loader on the card: ``ok``
+    and the metas as fastloader's, a printed line naming the route (libjpeg
+    through Pillow; without Pillow a rejected slot), and the canvas:
+    fastloader's exactly at divisor 1 (416), under the mean bound at
+    divisor 2 (128)."""
+    from multigriddet_tpu_torch.data.annotations import pil_available
+    lines = [f'{fixture_path(TRUNCATED)} 10,12,300,400,1']
+    for hw, rgb, metas, _ in truncated_ref():
+        loader = HostImageLoader(lines, hw, max_boxes=2, num_workers=1,
+                                 link_format=link, device=cuda_device)
+        try:
+            parts, boxes, got_metas, ok = loader.load_batch(
+                lines, return_metas=True)
+        finally:
+            loader.close()
+        out = capsys.readouterr().out
+        print(out)
+        assert 'truncated' in out
+        if not pil_available():     # a rejected slot, never nvJPEG's fill
+            assert ok.tolist() == [False] and not got_metas[0].any()
+            continue
+        assert ok.tolist() == [True] and np.array_equal(got_metas[0], metas)
+        assert boxes[0, 0, 4] == 1
+        assert 'libjpeg through Pillow' in out
+        if link == 'yuv420':     # against the 4:2:0 of fastloader's RGB
+            for p, w in zip(parts, cuda_jpeg.rgb_to_yuv420_plain(
+                    torch.from_numpy(rgb))):
+                d = np.abs(p[0].cpu().numpy().astype(np.int32)
+                           - w.numpy().astype(np.int32))
+                assert d.mean() < MEAN_BOUND
+            continue
+        got = parts[0].cpu().numpy().astype(np.int32)
+        diff = np.abs(got - rgb.astype(np.int32))
+        print(f'truncated @{hw[0]}: mean |dRGB| {diff.mean():.4f}, max '
+              f'{diff.max()}')
+        if cuda_jpeg.divisor(640, 480, hw) == 1:
+            assert_within_one(got, rgb, 'truncated rgb')
+        else:
+            assert diff.mean() < MEAN_BOUND
 
 
 @pytest.mark.cuda
