@@ -149,26 +149,34 @@
     decode uses the default one: Huffman on the host, IDCT on the card;
     the hardware backend, the only one that scales in the DCT domain, is
     refused here); (b) every fixture of ``tests/fixtures/jpeg/`` and
-    ``examples/images/dog.jpg`` decoded by nvJPEG and letterboxed by both
-    kernels at 608, 416, 128 and 64: bit-equal to the plain versions on
-    the same decoded pixels, metas and ok equal to fastloader's recorded
-    ones (``letterbox_ref.npz``), rejected slots gray, the pad gray, and
-    the mean |dRGB| at fastloader's recorded sample positions under
-    ``JPEG_MEAN_BOUND`` per image (printed with p99, max, Y and CbCr, and
-    the mean over every pixel of the content's border, where odd sizes
-    and MCU overhang show);
-    the decode's ms an image and each kernel's ms a b8 batch @608 beside
-    its plain version, its bound and ``F.interpolate`` + pad; (c) 64
-    annotation lines over the 640x480 fixtures: ``MultiGridTrainer`` for
-    2 epochs (train config augmentation, yuv420 link) streamed from the
-    files and then from the ``.npy`` disk cache that the card's loader
-    fills (a cached batch bit-equal to a decoded one), the evaluator from
-    the files (predictions equal to ``_evaluate_batches`` on the same
-    canvases in memory) and ``detect_files`` in rgb and yuv420, each
-    profiled: images/s and the device's busy share; then a batch of
-    JPEGs and one PNG through the loader and ``detect_files``, whose
-    JPEG slots must equal an all-JPEG batch's; the letterbox launch
-    counts of (c) go into the kernels line.
+    ``examples/images/dog.jpg`` decoded by nvJPEG (the batched
+    ``ycc_to_rgb`` on every file's planes, gray and a Pillow-route slot
+    included, in one launch a divisor, and one image a launch, bit-equal
+    to its plain version), by the decoder pool at 8 threads (images, sizes
+    and printed lines equal to the serial decode's, the truncated file
+    included) and letterboxed by both kernels at 608, 416, 128 and 64:
+    bit-equal to the plain versions on the same decoded pixels, metas and
+    ok equal to
+    fastloader's recorded ones (``letterbox_ref.npz``), rejected slots
+    gray, the pad gray, and the mean |dRGB| at fastloader's recorded
+    sample positions under ``JPEG_MEAN_BOUND`` per image (printed with
+    p99, max, Y and CbCr, and the mean over every pixel of the content's
+    border, where odd sizes and MCU overhang show); the decode's ms an
+    image on 1 and 8 decoder threads, ``ycc_to_rgb``'s ms a b8 batch and
+    each letterbox kernel's ms a b8 batch @608 beside its plain version,
+    its bound and ``F.interpolate`` + pad, and the loader's ms a b8 batch
+    at ``num_workers`` 1 and 8 on the 640x480 files and on the two
+    smallest fixtures; (c) 64 annotation lines over
+    the 640x480 fixtures, at ``num_workers`` 1 and 8 (decoder threads):
+    ``MultiGridTrainer`` for 2 epochs (train config augmentation, yuv420
+    link) streamed from the files, then from the ``.npy`` disk cache that
+    the card's loader fills (a cached batch bit-equal to a decoded one),
+    the evaluator from the files (predictions at both equal to
+    ``_evaluate_batches`` on the same canvases in memory) and
+    ``detect_files`` in rgb and yuv420, each profiled: images/s and the
+    device's busy share; then a batch of JPEGs and one PNG through the
+    loader and ``detect_files``, whose JPEG slots must equal an all-JPEG
+    batch's; the jpeg.cu launch counts of (c) go into the kernels line.
 
 14. Validate: ``python -m multigriddet_tpu_torch.validate`` at a cut
     budget: the ``flagship`` mode (``multigriddet_darknet``, bfloat16, the
@@ -186,7 +194,11 @@
 ``--step-times CHECKOUT ...`` only times the darknet serve and train
 steps of the port in each checkout given, one process each, and exits:
 the way to compare two commits on one card (parent, change, change,
-parent).
+parent).  ``--jpeg-times CHECKOUT ...`` does the same for the JPEG
+decode and the jpeg.cu kernels, each checkout through its own
+``chip_smoke.jpeg_rates``; ``--path-times CHECKOUT ...`` for phases 8 and
+14 (each checkout's own) and the card loader on 640x480 and tiny files
+(``jpeg_loader_rates`` on each checkout's port).
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
@@ -2923,6 +2935,14 @@ LETTERBOX_OPS = {'letterbox_rgb': 50, 'letterbox_yuv420': 59}
 # integer operations a pixel costs ycc_to_rgb (two upsampled chroma values
 # and the three table products, sums and clamps)
 YCC_OPS = 40
+# the decoder threads the file producer is measured at: one (a serial
+# decode) and the configs' num_workers
+JPEG_WORKERS = (1, 8)
+# the kernels of jpeg.cu by their wrappers in ops/cuda_jpeg.py, each
+# counting its launches
+JPEG_WRAPPERS = {'ycc_to_rgb': 'ycc_to_rgb_batch',
+                 'letterbox_rgb': 'letterbox_rgb',
+                 'letterbox_yuv420': 'letterbox_yuv420'}
 
 
 def device_busy(fn):
@@ -2945,10 +2965,16 @@ def device_busy(fn):
 
 
 def jpeg_fixture_checks(dev):
-    """Part (b): every fixture decoded by nvJPEG and letterboxed by both
-    kernels at the recorded canvases, against the plain versions on the
-    same decoded pixels (bit for bit) and against fastloader's recorded
+    """Part (b): every fixture decoded by nvJPEG (``ycc_to_rgb`` one image
+    a launch and the whole set in one launch, against its plain version),
+    by the decoder pool at ``JPEG_WORKERS[-1]`` threads (equal to the
+    serial decode) and letterboxed by both kernels at the recorded
+    canvases, against the plain versions on the same decoded pixels (bit
+    for bit) and against fastloader's recorded
     canvases (metas and ok exact, pixels within ``JPEG_MEAN_BOUND``)."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     import torch
     from multigriddet_tpu_torch.data import jpeg_cuda
@@ -2960,45 +2986,80 @@ def jpeg_fixture_checks(dev):
     names = [str(n) for n in ref['files']]
     paths = [os.path.join(REPO, n) for n in names]
     canvases = [tuple(hw) for hw in ref['canvases'].tolist()]
-    # the planes nvJPEG decoded for Decoder.decode (the main path's call)
-    # through the ycc_to_rgb kernel: the image decode returned, and every
-    # canvas's divisor, against its plain version
-    headers, max_err, converted = [], 0, []
+    # the planes nvJPEG decodes, through ycc_to_rgb one image a launch (the
+    # batched kernel's n = 1 case) against its plain version; then every
+    # file's planes (colour and gray) and the truncated file's (libjpeg's,
+    # through Pillow, factors (1, 1)) in one ycc_to_rgb_batch launch for
+    # each divisor of the canvases
+    headers, max_err, converted, slots = [], 0, [], []
     with cuda_jpeg.decoder(dev) as dec:
         for path in paths:
             with open(path, 'rb') as f:
                 data = f.read()
             hd = dec.header(data)
             headers.append(hd)
-            if isinstance(hd, int) or hd[3] not in cuda_jpeg.FACTORS:
+            if isinstance(hd, int) or hd[3] not in \
+                    (*cuda_jpeg.FACTORS, 'gray'):
                 continue
-            w, h, _, css, cw, ch = hd
-            planes = []
-            image, _, reason = dec.decode(data, None, planes)
-            if image is None:
+            planes, factors, _, reason = dec.planes(data)
+            if planes is None:
                 raise AssertionError(f'jpeg: nvJPEG refused {path} '
                                      f'({reason})')
-            factors = cuda_jpeg.FACTORS[css]
-            host_planes = [p.cpu() for p in planes]
-            want = cuda_jpeg.ycc_to_rgb_plain(*host_planes, factors, 1)
+            image, = cuda_jpeg.ycc_to_rgb_batch([(planes, factors, 1)])
+            want = cuda_jpeg.ycc_to_rgb_batch_plain(
+                [([p.cpu() for p in planes], factors, 1)])[0]
             max_err = max(max_err, int((image.cpu().int() - want.int())
                                        .abs().max()))
-            for d in sorted({cuda_jpeg.divisor(w, h, hw) for hw in canvases}):
-                got = cuda_jpeg.ycc_to_rgb(*planes, factors, d).cpu()
-                want = cuda_jpeg.ycc_to_rgb_plain(*host_planes, factors, d)
-                max_err = max(max_err,
-                              int((got.int() - want.int()).abs().max()))
-                converted.append((css, d))
+            slots.append((planes, factors, hd[3]))
+    with open(os.path.join(JPEG_DIR, 'truncated_50.jpg'), 'rb') as f:
+        got = jpeg_cuda.libjpeg_planes(f.read())
+    if got is not None:
+        slots.append(([torch.from_numpy(p).to(dev) for p in got[0]], got[1],
+                      'pillow'))
+    divisors = sorted({cuda_jpeg.divisor(640, 480, hw) for hw in canvases}
+                      | {8})
+    for d in divisors:
+        batch = [(planes, factors, d) for planes, factors, _ in slots]
+        outs = cuda_jpeg.ycc_to_rgb_batch(batch)
+        wants = cuda_jpeg.ycc_to_rgb_batch_plain(
+            [([p.cpu() for p in planes], factors, d)
+             for planes, factors, _ in batch])
+        for got_, want, (_, _, layout) in zip(outs, wants, slots):
+            max_err = max(max_err, int((got_.cpu().int() - want.int())
+                                       .abs().max()))
+            converted.append((layout, d))
     if max_err:
         raise AssertionError(f'jpeg: ycc_to_rgb differs from its plain '
                              f'version by {max_err}')
     log(f'[jpeg] ycc_to_rgb bit-equal to its plain version on the planes '
-        f'of the colour files, {len(converted)} (layout, divisor) cases: '
+        f'of every decoded file, one image a launch and {len(slots)} in one '
+        f'launch a divisor, {len(converted)} (layout, divisor) cases: '
         f'{sorted(set(converted))}')
     rows, failures = [], []
+    # the pool at JPEG_WORKERS[-1] threads against the serial decode, the
+    # truncated file included: images, sizes and printed lines equal
+    pool_paths = paths + [os.path.join(JPEG_DIR, 'truncated_50.jpg')]
+    pools = [ThreadPoolExecutor(k) for k in JPEG_WORKERS]
     for ci, (th, tw) in enumerate(canvases):
         hw = (th, tw)
-        images, sizes = jpeg_cuda.decode_files(paths, dev, hw)
+        decoded = []
+        for pool in pools:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                decoded.append(jpeg_cuda.decode_files(pool_paths, dev, hw,
+                                                      pool))
+            decoded[-1] += (out.getvalue(),)
+        (serial, serial_sizes, serial_out), (images, sizes, lines) = decoded
+        if ci == 0:
+            log(serial_out.rstrip())
+        if not (sizes == serial_sizes and lines == serial_out and all(
+                (a is None and b is None) or (a is not None and b is not None
+                                              and torch.equal(a, b))
+                for a, b in zip(images, serial))):
+            raise AssertionError(f'jpeg: the decoder pool at '
+                                 f'{JPEG_WORKERS[-1]} differs from the '
+                                 f'serial decode at {hw}')
+        images, sizes = images[:len(paths)], sizes[:len(paths)]
         host = [None if im is None else im.cpu() for im in images]
         canvas, metas, ok = cuda_jpeg.letterbox_rgb(images, hw, dev, sizes)
         y, cb, cr, metas2, ok2 = cuda_jpeg.letterbox_yuv420(images, hw, dev,
@@ -3076,6 +3137,12 @@ def jpeg_fixture_checks(dev):
                 failures.append(f'{base} @{th}: mean |dRGB| '
                                 f'{row["canvas_mean"]:.3f} >= '
                                 f'{JPEG_MEAN_BOUND}')
+    for pool in pools:
+        pool.shutdown()
+    log(f'[jpeg] decoder pool at {JPEG_WORKERS[-1]} threads equal to the '
+        f'serial decode on {len(pool_paths)} files (the truncated one '
+        f'included) at {[hw[0] for hw in canvases]}: images, sizes and '
+        f'printed lines')
     for fi, name in enumerate(names):
         base = os.path.basename(name)
         mine = [r for r in rows if r['file'] == base]
@@ -3125,39 +3192,63 @@ def jpeg_lines(root, photos, seed):
 
 
 def jpeg_rates(dev, photos):
-    """Decode ms per image, and each letterbox kernel's ms per b8 batch @608
-    with its plain version's, the bound and the bilinear
-    ``F.interpolate`` + pad yardstick on the same images."""
-    import numpy as np
+    """The decode's ms per image on 1 and ``JPEG_WORKERS[-1]`` decoder
+    threads, ``ycc_to_rgb``'s ms per b8 batch (one launch) and per image,
+    and each letterbox kernel's ms per b8 batch @608, with their plain
+    versions', their bounds and the bilinear ``F.interpolate`` + pad
+    yardstick on the same images."""
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     import torch.nn.functional as F
     from multigriddet_tpu_torch.data import jpeg_cuda
     from multigriddet_tpu_torch.ops import cuda_jpeg
     paths = photos[:B]
-    with open(paths[0], 'rb') as f:
-        data = f.read()
+    slots = []
     with cuda_jpeg.decoder(dev) as dec:
-        w, h, _, css, _, _ = dec.header(data)
-        planes = []
-        if dec.decode(data, None, planes)[0] is None:
-            raise AssertionError(f'jpeg: nvJPEG refused {paths[0]}')
-    factors = cuda_jpeg.FACTORS[css]
-    ycc_ms = cuda_ms(lambda: cuda_jpeg.ycc_to_rgb(*planes, factors), 50,
+        for path in paths:
+            with open(path, 'rb') as f:
+                planes, factors, _, reason = dec.planes(f.read())
+            if planes is None:
+                raise AssertionError(f'jpeg: nvJPEG refused {path} '
+                                     f'({reason})')
+            slots.append((planes, factors, 1))
+    ycc_ms = cuda_ms(lambda: cuda_jpeg.ycc_to_rgb_batch(slots), 50,
                      queued=True)
-    host_planes = [p.cpu() for p in planes]
+    one_ms = cuda_ms(lambda: cuda_jpeg.ycc_to_rgb_batch(slots[:1]), 50,
+                     queued=True)
+    # B copies of one 4:2:0 photo: the batch that B launches of one image
+    # each (the per-image kernel before) would convert
+    same = [next(slot for slot in slots if slot[1] == (2, 2))] * len(slots)
+    same_ms = cuda_ms(lambda: cuda_jpeg.ycc_to_rgb_batch(same), 50,
+                      queued=True)
+    host_slots = [([p.cpu() for p in planes], f, d)
+                  for planes, f, d in slots]
     t0 = time.perf_counter()
-    cuda_jpeg.ycc_to_rgb_plain(*host_planes, factors)
+    cuda_jpeg.ycc_to_rgb_batch_plain(host_slots)
     ycc_plain_ms = (time.perf_counter() - t0) * 1e3
-    moved = sum(p.numel() for p in planes) + 3 * w * h
-    ycc_bound, ycc_by = bound(moved, YCC_OPS * w * h)
-    jpeg_cuda.decode_files(paths, dev, HW)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reps = 5
-    for _ in range(reps):
-        images, sizes = jpeg_cuda.decode_files(paths, dev, HW)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / reps / len(paths)
+    # each plane read once, each image written once
+    moved = sum(p.numel() for planes, _, _ in slots for p in planes) + sum(
+        out.numel() for out in cuda_jpeg.ycc_to_rgb_batch(slots))
+    ycc_bound, ycc_by = bound(moved, YCC_OPS * sum(
+        planes[0].numel() for planes, _, _ in slots))
+    css = sorted({'gray' if f is None else f'{f[0]}x{f[1]}'
+                  for _, f, _ in slots})
+    # the decode: 64 files (the photos repeated) on 1 and 8 threads
+    files = [photos[i % len(photos)] for i in range(JPEG_LINES)]
+    decode_ms = {}
+    pools = {k: ThreadPoolExecutor(k) for k in JPEG_WORKERS}
+    for nthreads in JPEG_WORKERS + JPEG_WORKERS[::-1]:
+        pool = pools[nthreads]
+        jpeg_cuda.decode_files(files[:B], dev, HW, pool)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, sizes = jpeg_cuda.decode_files(files, dev, HW, pool)
+        torch.cuda.synchronize()
+        decode_ms.setdefault(nthreads, []).append(
+            (time.perf_counter() - t0) * 1e3 / len(files))
+    for pool in pools.values():
+        pool.shutdown()
+    images, sizes = images[:B], sizes[:B]
     host = [im.cpu() for im in images]
     src_bytes = sum(im.numel() for im in images)
     _, nw, nh, px, py = cuda_jpeg.geometry(640, 480, HW)
@@ -3169,13 +3260,17 @@ def jpeg_rates(dev, photos):
                                    align_corners=False),
                      (px, HW[1] - nw - px, py, HW[0] - nh - py), value=128.0)
     library_ms = cuda_ms(yardstick, 20, queued=True)
-    out = {'ycc_to_rgb': {'ms': ycc_ms, 'plain_ms': ycc_plain_ms,
-                          'bound_ms': ycc_bound, 'bound_by': ycc_by,
-                          'bytes': moved}}
-    log(f'[jpeg] ycc_to_rgb {w}x{h} {css}: {ycc_ms:.4f} ms an image '
-        f'({moved / 1e6:.2f} MB, bound {ycc_bound * 1e3:.2f} us by {ycc_by},'
-        f' {ycc_bound / ycc_ms:.1%} of it); plain on the CPU '
-        f'{ycc_plain_ms:.1f} ms')
+    out = {'ycc_to_rgb': {'ms': ycc_ms, 'ms_one_image': one_ms,
+                          'ms_same_420': same_ms,
+                          'plain_ms': ycc_plain_ms, 'bound_ms': ycc_bound,
+                          'bound_by': ycc_by, 'bytes': moved,
+                          'images': len(slots)}}
+    log(f'[jpeg] ycc_to_rgb b{len(slots)} 640x480 (factors {css}): '
+        f'{ycc_ms:.4f} ms a batch in one launch ({moved / 1e6:.2f} MB, bound '
+        f'{ycc_bound * 1e3:.2f} us by {ycc_by}, {ycc_bound / ycc_ms:.1%} of '
+        f'it), {same_ms:.4f} ms for {len(same)} copies of one 4:2:0 photo, '
+        f'{one_ms:.4f} ms for one image; plain on the CPU '
+        f'{ycc_plain_ms:.1f} ms a batch')
     for name, fn, out_bytes in (
             ('letterbox_rgb', cuda_jpeg.letterbox_rgb, 3),
             ('letterbox_yuv420', cuda_jpeg.letterbox_yuv420, 1.5)):
@@ -3194,15 +3289,58 @@ def jpeg_rates(dev, photos):
             f'by {bound_by}, {bound_ms / ms:.1%} of it); plain on the CPU '
             f'{plain_ms:.1f} ms; F.interpolate bilinear + pad (not the same '
             f'function) {library_ms:.4f} ms')
-    log(f'[jpeg] nvJPEG decode {decode_ms:.3f} ms an image (640x480, '
-        f'{len(paths)} files, host read + Huffman + card IDCT, synchronized)')
-    return decode_ms, out
+    log(f'[jpeg] nvJPEG decode (640x480, {len(files)} files, host read + '
+        f'Huffman + card IDCT, then the batch\'s ycc_to_rgb, synchronized) '
+        f'ms an image by decoder threads, two turns each: '
+        + ', '.join(f'{k}: {v[0]:.3f} / {v[1]:.3f}'
+                    for k, v in decode_ms.items())
+        + f'; host cores: {os.cpu_count()}')
+    return {k: min(v) for k, v in decode_ms.items()}, out
+
+
+def jpeg_loader_rates(dev, photos):
+    """``HostImageLoader`` on the card: ms a b8 batch (yuv420 link) at
+    ``num_workers`` 1 and 8, in turns (1, 8, 8, 1), for the 640x480 photos
+    at 608 and for the two smallest fixtures (97x61 and 73x128, a few KB
+    each, as small as the learning validation's files) at 128."""
+    import torch
+    from multigriddet_tpu_torch.data.annotations import HostImageLoader
+    tiny = [os.path.join(JPEG_DIR, n) for n in ('odd_97x61.jpg',
+                                                'tie_73x128.jpg')]
+    out = {}
+    for label, files, hw in (('640x480 files @608', photos, HW),
+                             ('tiny files @128', tiny, (128, 128))):
+        lines = [f'{files[i % len(files)]} 1,1,9,9,0'
+                 for i in range(JPEG_LINES)]
+        got = {}
+        for workers in JPEG_WORKERS + JPEG_WORKERS[::-1]:
+            loader = HostImageLoader(lines, hw, 1, num_workers=workers,
+                                     link_format='yuv420', device=dev)
+            try:
+                loader.load_batch(lines[:B])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for start in range(0, len(lines), B):
+                    loader.load_batch(lines[start:start + B])
+                torch.cuda.synchronize()
+            finally:
+                loader.close()
+            got.setdefault(workers, []).append(
+                (time.perf_counter() - t0) * 1e3 / (len(lines) // B))
+        kb = sum(os.path.getsize(f) for f in files) / len(files) / 1024
+        out[label] = {'file_kb': kb, 'ms_a_batch': got}
+        log(f'[jpeg] loader, {label} ({kb:.1f} KB a file), yuv420: ms a b8 '
+            f'batch by num_workers, two turns each: ' + ', '.join(
+                f'{k}: {v[0]:.3f} / {v[1]:.3f}' for k, v in got.items())
+            + f'; host cores: {os.cpu_count()}')
+    return out
 
 
 def jpeg_producer(dev, root, photos, rates):
     """Part (c): the trainer, the evaluator and ``detect_files`` reading
-    ``JPEG_LINES`` JPEG files on the card; the letterbox launch counts
-    of these runs alone."""
+    ``JPEG_LINES`` JPEG files on the card with ``num_workers`` at each of
+    ``JPEG_WORKERS`` (decoder threads); the launch counts of jpeg.cu's
+    kernels in these runs alone."""
     import numpy as np
     import torch
     from multigriddet_tpu_torch.data import jpeg_cuda
@@ -3212,42 +3350,40 @@ def jpeg_producer(dev, root, photos, rates):
     from multigriddet_tpu_torch.inference import MultiGridInference
     from multigriddet_tpu_torch.models import (load_flax_variables,
                                                random_flax_variables)
-    from multigriddet_tpu_torch.ops import cuda_jpeg
     from multigriddet_tpu_torch.training import MultiGridTrainer
     ann, lines = jpeg_lines(root, photos, SEED + 51)
     decode_ms = rates[0]
     lb_ms = {k: v['ms'] for k, v in rates[1].items()}
-    ycc_ms = rates[1]['ycc_to_rgb']['ms']
-    kernels = (cuda_jpeg.ycc_to_rgb, cuda_jpeg.letterbox_rgb,
-               cuda_jpeg.letterbox_yuv420)
-    launches = {k.__name__: 0 for k in kernels}
+    launches = {name: 0 for name in JPEG_WRAPPERS}
     out = {}
 
-    def run(label, n_images, fn, rate=None, extra=lambda: ''):
+    def run(label, n_images, fn, rate=None, extra=lambda: '', workers=1):
         """One main-path run, its kernels traced: the launches of the
         kernels of jpeg.cu (counted from zero just before it), images/s
         (``rate()``, or images over the wall) and the device's busy
         share."""
-        for k in kernels:
-            k.launches = 0
+        reset_jpeg_launches()
         seconds, busy = device_busy(fn)
-        for k in kernels:
-            launches[k.__name__] += k.launches
+        for name, n in count_jpeg_launches().items():
+            launches[name] += n
         ips = rate() if rate else n_images / seconds
         log(f'[jpeg] {label}: {ips:.1f} img/s ({n_images} images, '
-            f'{seconds:.2f} s in all), decode {decode_ms:.3f} ms an image '
-            f'(ycc_to_rgb {ycc_ms:.4f}), letterbox kernel '
-            f'{lb_ms["letterbox_rgb"]:.4f} (rgb) / '
+            f'{seconds:.2f} s in all), decode '
+            f'{decode_ms.get(workers, float("nan")):.3f} ms an image on '
+            f'{workers} thread(s), ycc_to_rgb {lb_ms["ycc_to_rgb"]:.4f} and '
+            f'letterbox {lb_ms["letterbox_rgb"]:.4f} (rgb) / '
             f'{lb_ms["letterbox_yuv420"]:.4f} (yuv420) ms a batch, device '
             f'busy {busy:.1%}{extra()}')
         out[label] = {'images_per_sec': ips, 'seconds': seconds,
-                      'device_busy_share': busy}
+                      'device_busy_share': busy, 'num_workers': workers}
         return out[label]
 
-    # the trainer: streamed from the files, then from the .npy disk cache
-    # that the card's loader fills (one device-to-host copy a batch)
+    # the trainer: streamed from the files at each num_workers, then from
+    # the .npy disk cache that the card's loader fills (one device-to-host
+    # copy a batch)
     cache = os.path.join(root, 'cache')
-    filler = HostImageLoader(lines, HW, TRAIN_MAX_BOXES, num_workers=1,
+    filler = HostImageLoader(lines, HW, TRAIN_MAX_BOXES,
+                             num_workers=JPEG_WORKERS[-1],
                              disk_cache_dir=cache, link_format='yuv420',
                              device=dev)
     plain = HostImageLoader(lines, HW, TRAIN_MAX_BOXES, num_workers=1,
@@ -3261,12 +3397,15 @@ def jpeg_producer(dev, root, photos, rates):
         raise AssertionError('jpeg: the disk cache differs from the decode')
     filler.close()
     plain.close()
-    for label, tag, cache_dir in (
-            ('trainer from JPEG files', 'files', None),
-            ('trainer from the .npy disk cache', 'cached', cache)):
+    for label, tag, cache_dir, workers in (
+            *((f'trainer from JPEG files, num_workers {k}', f'files{k}',
+               None, k) for k in JPEG_WORKERS),
+            ('trainer from the .npy disk cache', 'cached', cache,
+             JPEG_WORKERS[-1])):
         cfg = train_config(os.path.join(root, tag), aug=TRAIN_AUG)
         cfg['data'] = {'train_annotation': ann}
         cfg['data_loader']['disk_cache_dir'] = cache_dir
+        cfg['data_loader']['num_workers'] = workers
         cfg['training']['epochs'] = 2
         trainer = MultiGridTrainer(cfg, device=dev)
         history = []
@@ -3275,7 +3414,8 @@ def jpeg_producer(dev, root, photos, rates):
                   lambda: history[-1]['images_per_sec'],
                   lambda: f' (epoch 2); epoch images/s '
                           f'{[round(r["images_per_sec"], 1) for r in history]}'
-                          f', losses {[round(r["loss"], 4) for r in history]}')
+                          f', losses {[round(r["loss"], 4) for r in history]}',
+                  workers)
         if not all(np.isfinite(r['loss']) for r in history) or \
                 len(history) != 2:
             raise AssertionError(f'jpeg: {label}: bad history {history}')
@@ -3283,18 +3423,22 @@ def jpeg_producer(dev, root, photos, rates):
         del trainer
         torch.cuda.empty_cache()
 
-    # the evaluator from the files against the same canvases in memory,
-    # with deterministic cuDNN (two forwards of one batch then agree)
+    # the evaluator from the files at each num_workers against the same
+    # canvases in memory, with deterministic cuDNN (two forwards of one
+    # batch then agree)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    runs = []
     try:
-        ev = MultiGridEvaluator(eval_config('pallas_fused'), device=dev)
-        run('evaluator from JPEG files', len(lines),
-            lambda: ev.evaluate(ann),
-            lambda: ev.timing['images_per_sec'], lambda: ' (inference)')
-        from_files = ev.predictions
-        ev.evaluate(ann)
-        again = ev.predictions
+        for workers in JPEG_WORKERS:
+            cfg = eval_config('pallas_fused')
+            cfg['evaluation']['num_workers'] = workers
+            ev = MultiGridEvaluator(cfg, device=dev)
+            run(f'evaluator from JPEG files, num_workers {workers}',
+                len(lines), lambda: ev.evaluate(ann),
+                lambda: ev.timing['images_per_sec'], lambda: ' (inference)',
+                workers)
+            runs.append(ev.predictions)
         items, file_parts = [], [parts for parts, _ in
                                  ev._file_batches(lines)]
         for start in range(0, len(lines), B):
@@ -3313,7 +3457,7 @@ def jpeg_producer(dev, root, photos, rates):
         in_memory = ev.predictions
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    for run_ in (from_files, again):
+    for run_ in runs:
         differ = [k for k in sorted(run_) if k not in in_memory or any(
             not np.array_equal(run_[k][f], in_memory[k][f])
             for f in ('boxes', 'classes', 'scores'))]
@@ -3321,10 +3465,10 @@ def jpeg_producer(dev, root, photos, rates):
             raise AssertionError(
                 f'jpeg: the evaluator\'s predictions from files differ from '
                 f'the same canvases in memory on {len(differ)} images')
-    n_det = sum(len(p['scores']) for p in from_files.values())
-    log(f'[jpeg] evaluator: {n_det} detections from the files (two runs) '
-        f'equal to the same canvases fed in memory, the file batches '
-        f'bit-equal to them')
+    n_det = sum(len(p['scores']) for p in runs[0].values())
+    log(f'[jpeg] evaluator: {n_det} detections from the files (runs at '
+        f'num_workers {JPEG_WORKERS}) equal to the same canvases fed in '
+        f'memory, the file batches bit-equal to them')
     del ev
     for link in ('rgb', 'yuv420'):
         cfg = serve_config('pallas_fused')
@@ -3333,15 +3477,23 @@ def jpeg_producer(dev, root, photos, rates):
         load_flax_variables(engine.model,
                             *random_flax_variables(engine.model, seed=SEED))
         paths = [ln.split()[0] for ln in lines]
-        results = []
-        run(f'detect_files {link}', len(paths),
-            lambda: results.extend(engine.detect_files(paths, batch_size=B)),
-            extra=lambda: f'; {sum(len(s) for _, _, s in results)} '
-                          f'detections')
-        if len(results) != len(paths) or not all(
-                in_range(b, c, s, FRAME_HW, 0.0) for b, c, s in results):
-            raise AssertionError(f'jpeg: detect_files ({link}) gave '
-                                 f'results out of range')
+        by_workers = []
+        for workers in JPEG_WORKERS:
+            results = []
+            run(f'detect_files {link}, num_workers {workers}', len(paths),
+                lambda: results.extend(engine.detect_files(
+                    paths, batch_size=B, num_workers=workers)),
+                extra=lambda: f'; {sum(len(s) for _, _, s in results)} '
+                              f'detections', workers=workers)
+            if len(results) != len(paths) or not all(
+                    in_range(b, c, s, FRAME_HW, 0.0) for b, c, s in results):
+                raise AssertionError(f'jpeg: detect_files ({link}) gave '
+                                     f'results out of range')
+            by_workers.append(sum(len(s) for _, _, s in results))
+        if len(set(by_workers)) != 1:
+            raise AssertionError(f'jpeg: detect_files ({link}) kept '
+                                 f'{by_workers} boxes at num_workers '
+                                 f'{JPEG_WORKERS}')
         jpeg_mixed_batch(dev, engine, paths[:B], root, link)
         del engine
     if not all(launches.values()):
@@ -3401,9 +3553,11 @@ def jpeg_mixed_batch(dev, engine, paths, root, link):
 
 
 def phase_jpeg(dev, smi, build=None):
-    """Phase 13: JPEG files on the card (nvJPEG decode, the letterbox
+    """Phase 13: JPEG files on the card (nvJPEG decode on a pool of
+    decoder threads, the batched ``ycc_to_rgb`` and the letterbox
     kernels, the file producer of the trainer, the evaluator and
-    ``detect_files``) at ``multigriddet_darknet`` full width, @608, b8."""
+    ``detect_files`` at ``num_workers`` 1 and 8) at
+    ``multigriddet_darknet`` full width, @608, b8."""
     import shutil
     import numpy as np
     from multigriddet_tpu_torch.ops import cuda_jpeg
@@ -3426,6 +3580,7 @@ def phase_jpeg(dev, smi, build=None):
     photos = [os.path.join(REPO, str(n)) for n, m in zip(
         ref['files'], ref['metas'][:, 0]) if m[3] == 640 and m[4] == 480]
     rates = jpeg_rates(dev, photos)
+    loader = jpeg_loader_rates(dev, photos)
     root = os.path.join(REPO, 'build', 'chip_smoke_jpeg')
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -3437,8 +3592,8 @@ def phase_jpeg(dev, smi, build=None):
     log(f'[jpeg] phase took {seconds:.1f} s; card: {smi}')
     return {'decoder': report, 'fixtures': fixtures,
             'decode_ms_per_image': rates[0], 'kernels': rates[1],
-            'producer': producer, 'launches': producer['launches'],
-            'seconds': seconds}
+            'loader_ms_a_batch': loader, 'producer': producer,
+            'launches': producer['launches'], 'seconds': seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -3457,16 +3612,21 @@ JPEG_PATH_KERNELS = ('ycc_to_rgb', 'letterbox_yuv420')
 
 def reset_jpeg_launches():
     from multigriddet_tpu_torch.ops import cuda_jpeg
-    for name in ('ycc_to_rgb', 'letterbox_rgb', 'letterbox_yuv420'):
-        getattr(cuda_jpeg, name).launches = 0
+    for wrapper in JPEG_WRAPPERS.values():
+        getattr(cuda_jpeg, wrapper).launches = 0
+
+
+def count_jpeg_launches():
+    """The jpeg.cu launches since ``reset_jpeg_launches``, by kernel."""
+    from multigriddet_tpu_torch.ops import cuda_jpeg
+    return {name: getattr(cuda_jpeg, wrapper).launches
+            for name, wrapper in JPEG_WRAPPERS.items()}
 
 
 def read_jpeg_launches(label):
     """The jpeg.cu launches since ``reset_jpeg_launches``; fails where a
     kernel of the validations' input path was launched no time."""
-    from multigriddet_tpu_torch.ops import cuda_jpeg
-    got = {name: getattr(cuda_jpeg, name).launches
-           for name in ('ycc_to_rgb', 'letterbox_rgb', 'letterbox_yuv420')}
+    got = count_jpeg_launches()
     if not all(got[name] for name in JPEG_PATH_KERNELS):
         raise AssertionError(f'{label}: the run did not go through '
                              f'{JPEG_PATH_KERNELS}: launches {got}')
@@ -3477,16 +3637,19 @@ def validate_jpeg_check(dev, lines, hw, label):
     """Hold the jpeg.cu kernels of a learning validation's input path
     against their plain versions at that path's own shapes: one batch of
     the set's own JPEGs at the task's canvas, decoded as the train
-    generator decodes them (``jpeg_cuda.decode_files``) and letterboxed to
-    4:2:0 by ``letterbox_yuv420``.  Each image against ``ycc_to_rgb_plain``
-    on nvJPEG's planes of the same file, and the planes against
-    ``letterbox_rgb`` on the CPU then ``rgb_to_yuv420_plain``: bit for
-    bit, with metas and ok equal.  Launches made here are not counted."""
+    generator decodes them (``jpeg_cuda.decode_files`` on its 8 decoder
+    threads) and letterboxed to 4:2:0 by ``letterbox_yuv420``.  Each image
+    against ``ycc_to_rgb_plain`` on nvJPEG's planes of the same file, and
+    the planes against ``letterbox_rgb`` on the CPU then
+    ``rgb_to_yuv420_plain``: bit for bit, with metas and ok equal.
+    Launches made here are not counted."""
+    from concurrent.futures import ThreadPoolExecutor
     import numpy as np
     from multigriddet_tpu_torch.data import jpeg_cuda, parse_annotation_line
     from multigriddet_tpu_torch.ops import cuda_jpeg
     paths = [parse_annotation_line(line)[0] for line in lines]
-    images, sizes = jpeg_cuda.decode_files(paths, dev, hw)
+    with ThreadPoolExecutor(JPEG_WORKERS[-1]) as pool:
+        images, sizes = jpeg_cuda.decode_files(paths, dev, hw, pool)
     max_err, layouts = 0, set()
     with cuda_jpeg.decoder(dev) as dec:
         for path, image, size in zip(paths, images, sizes):
@@ -3497,11 +3660,11 @@ def validate_jpeg_check(dev, lines, hw, label):
                     or hd[3] not in cuda_jpeg.FACTORS:
                 raise AssertionError(f'{label}: {path} is not a colour JPEG '
                                      f'that nvJPEG decodes ({hd})')
-            planes = []
-            again, _, _ = dec.decode(data, hw, planes)
+            planes, factors, _, _ = dec.planes(data)
             d = cuda_jpeg.divisor(*size, hw)
+            again = cuda_jpeg.ycc_to_rgb(*planes, factors, d)
             want = cuda_jpeg.ycc_to_rgb_plain(
-                *(p.cpu() for p in planes), cuda_jpeg.FACTORS[hd[3]], d)
+                *(p.cpu() for p in planes), factors, d)
             for got in (image, again):
                 max_err = max(max_err, int((got.cpu().int() - want.int())
                                            .abs().max()))
@@ -3681,6 +3844,87 @@ def compare_step_times(trees):
     return out
 
 
+_JPEG_TIMES_CHILD = """
+import json, os, sys
+sys.path.insert(0, {tree!r})
+import numpy as np, torch
+import chip_smoke as c
+c.phase_build()
+ref = np.load(os.path.join(c.JPEG_DIR, 'letterbox_ref.npz'))
+photos = [os.path.join({tree!r}, str(n)) for n, m in
+          zip(ref['files'], ref['metas'][:, 0]) if m[3] == 640 and m[4] == 480]
+decode, kernels = c.jpeg_rates(torch.device('cuda'), photos)
+print('JPEG ' + json.dumps({{'decode_ms': decode, 'kernels': {{
+    k: {{f: v for f, v in d.items() if isinstance(v, (int, float))}}
+    for k, d in kernels.items()}}}}), flush=True)
+"""
+
+
+def compare_jpeg_times(trees):
+    """The decode's and the jpeg.cu kernels' times of each checkout of
+    ``trees`` (its own ``chip_smoke.jpeg_rates``: b8 640x480 files @608),
+    one fresh process each, in the order given (e.g. parent, change,
+    change, parent): one line ``{"tree": ..., ...}`` each."""
+    out = []
+    for tree in trees:
+        code = _JPEG_TIMES_CHILD.format(tree=os.path.abspath(tree))
+        proc = subprocess.run([sys.executable, '-c', code], text=True,
+                              capture_output=True, check=True,
+                              cwd=os.path.abspath(tree))
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith('JPEG ')][-1]
+        out.append({'tree': tree, **json.loads(line[len('JPEG '):])})
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
+_PATH_TIMES_CHILD = """
+import importlib.util, json, os, sys, time
+sys.path.insert(0, {tree!r})
+import numpy as np, torch
+import chip_smoke as c
+spec = importlib.util.spec_from_file_location('chip_smoke_here', {script!r})
+here = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(here)
+dev = torch.device('cuda')
+smi = c.smi_line()
+c.phase_build()
+ref = np.load(os.path.join(c.JPEG_DIR, 'letterbox_ref.npz'))
+photos = [os.path.join({tree!r}, str(n)) for n, m in
+          zip(ref['files'], ref['metas'][:, 0]) if m[3] == 640 and m[4] == 480]
+out = {{'loader': here.jpeg_loader_rates(dev, photos)}}
+for name, phase in (('8 overfit', c.phase_overfit_map),
+                    ('14 validate', c.phase_validate)):
+    t0 = time.perf_counter()
+    phase(dev, smi)
+    out[name] = time.perf_counter() - t0
+print('PATHS ' + json.dumps(out), flush=True)
+"""
+
+
+def compare_path_times(trees):
+    """Phases 8 and 14 (the learning validations, reading their small
+    JPEGs through the card's loader at ``num_workers`` 8) of each checkout
+    of ``trees``, its own script's phases on its own port, and this
+    script's loader rates (``jpeg_loader_rates``) on that port: one fresh
+    process each, in the order given (e.g. parent, change, change,
+    parent); one line ``{"tree": ..., ...}`` each, seconds a phase."""
+    out = []
+    for tree in trees:
+        code = _PATH_TIMES_CHILD.format(tree=os.path.abspath(tree),
+                                        script=os.path.abspath(__file__))
+        proc = subprocess.run([sys.executable, '-c', code], text=True,
+                              capture_output=True, cwd=os.path.abspath(tree))
+        print(proc.stdout, flush=True)
+        if proc.returncode:
+            raise RuntimeError(f'--path-times {tree}: {proc.stderr[-4000:]}')
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith('PATHS ')][-1]
+        out.append({'tree': tree, **json.loads(line[len('PATHS '):])})
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument('--report', default=None,
@@ -3689,6 +3933,13 @@ def main(argv=None) -> int:
                    help='only time the darknet serve and train steps of the '
                         'port in each checkout, in turn (e.g. parent, change, '
                         'change, parent), and exit')
+    p.add_argument('--jpeg-times', nargs='+', metavar='CHECKOUT',
+                   help='only time the JPEG decode and the jpeg.cu kernels '
+                        'of each checkout (its own phase 13 measurement), '
+                        'in turns, and exit')
+    p.add_argument('--path-times', nargs='+', metavar='CHECKOUT',
+                   help='only time phases 8 and 14 and the card loader of '
+                        'each checkout, in turns, and exit')
     p.add_argument('--dp-child', nargs='+', help=argparse.SUPPRESS)
     p.add_argument('--sp-child', nargs='+', help=argparse.SUPPRESS)
     args = p.parse_args(argv)
@@ -3715,6 +3966,12 @@ def main(argv=None) -> int:
     log(f'[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}')
     if args.step_times:
         compare_step_times(args.step_times)
+        return 0
+    if args.jpeg_times:
+        compare_jpeg_times(args.jpeg_times)
+        return 0
+    if args.path_times:
+        compare_path_times(args.path_times)
         return 0
     from multigriddet_tpu_torch.utils.profiling import PhaseTimer
     dev = torch.device('cuda')

@@ -117,13 +117,15 @@ class HostImageLoader:
     """Image decode + letterbox producing batches.
 
     On the CPU (the default ``device``) JPEG batches go through the native
-    loader (``data/native.py``) when it is built; everything else, and any
-    slot the native path rejects, goes through PIL on a thread pool; the
-    batches are numpy.  On a CUDA ``device`` every batch is decoded by
-    nvJPEG and letterboxed by the card's kernels (``data/jpeg_cuda.py``)
-    on the caller's current stream, and the batches are tensors on the
-    device; a slot the decoder rejects (a PNG, a corrupt file) is retried
-    through PIL where Pillow imports and stays gray otherwise.
+    loader (``data/native.py``) on ``num_workers`` native threads when it
+    is built; everything else, and any slot the native path rejects, goes
+    through PIL on a thread pool; the batches are numpy.  On a CUDA
+    ``device`` every batch is decoded by nvJPEG on ``num_workers`` threads
+    (the calling one and the loader's pool) and letterboxed by
+    the card's kernels (``data/jpeg_cuda.py``) on the caller's current
+    stream, and the batches are tensors on the device; a slot the decoder
+    rejects (a PNG, a corrupt file) is retried through PIL where Pillow
+    imports and stays gray otherwise.
     ``link_format='rgb'`` gives one ``[N, H, W, 3]`` u8 batch; ``'yuv420'``
     a tuple of planar ``(y [N, H, W], cb, cr [N, H/2, W/2])`` u8, half the
     bytes.  ``cache_images`` keeps decoded images in host memory;
@@ -331,7 +333,7 @@ class HostImageLoader:
         if paths and (self.on_card or (self.use_native and jpeg)):
             if self.on_card:
                 from . import jpeg_cuda as loader
-                kw = {'device': self.device}
+                kw = {'device': self.device, 'pool': self.pool}
                 yuv, rgb = (loader.load_letterbox_yuv_batch_cuda,
                             loader.load_letterbox_batch_cuda)
             else:

@@ -19,6 +19,7 @@ import glob
 import os
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -62,6 +63,7 @@ class MultiGridInference:
     def __init__(self, config: Dict[str, Any], device=None):
         self.config = config
         self.device = resolve_device(device)
+        self.on_card = self.device.type == 'cuda'
         det = config.get('detection', {}) or {}
         self.confidence = float(det.get('confidence_threshold', 0.5))
         self.nms_threshold = float(det.get('nms_threshold', 0.45))
@@ -212,9 +214,11 @@ class MultiGridInference:
                      num_workers: int = 8, pipeline_depth: int = 4):
         """File-based batched detection.
 
-        On the card every file is decoded by nvJPEG and letterboxed by the
-        card's kernels (``data/jpeg_cuda.py``); on the CPU an all-JPEG
-        list goes through the native loader (``data/native.py``) on native
+        On the card every file is decoded by nvJPEG on ``num_workers``
+        threads (the calling one and a pool kept for the call) and
+        letterboxed by the card's kernels
+        (``data/jpeg_cuda.py``); on the CPU an all-JPEG list goes through
+        the native loader (``data/native.py``) on ``num_workers`` native
         threads.  Either feeds the fused step, in planar 4:2:0 with
         ``link_format: yuv420``; a slot the decoder rejects (a PNG, a
         corrupt file) is retried with PIL where Pillow imports, and the
@@ -227,16 +231,19 @@ class MultiGridInference:
         from ..data import jpeg_cuda, native
 
         all_jpeg = all(p.lower().endswith(('.jpg', '.jpeg')) for p in paths)
-        on_card = self.device.type == 'cuda'
+        on_card = self.on_card
         if not on_card and not (all_jpeg and native.native_available()):
             return self._detect_files_pil(paths, batch_size, pipeline_depth)
         if on_card:
             load_rgb = jpeg_cuda.load_letterbox_batch_cuda
             load_yuv = jpeg_cuda.load_letterbox_yuv_batch_cuda
-            kw = {'device': self.device}
+            pool = ThreadPoolExecutor(max(1, num_workers),
+                                      thread_name_prefix='nvjpeg')
+            kw = {'device': self.device, 'pool': pool}
         else:
             load_rgb = native.load_letterbox_batch
             load_yuv = native.load_letterbox_yuv_batch
+            pool = None
             kw = {'nthreads': num_workers}
         retry = pil_available()
         use_yuv = (self._infer_yuv is not None
@@ -244,31 +251,37 @@ class MultiGridInference:
                    and self.input_hw[1] % 2 == 0)
         results: list = []
         pending: deque = deque()
-        for start in range(0, len(paths), batch_size):
-            chunk = paths[start:start + batch_size]
-            if use_yuv:
-                ys, cbs, crs, metas, ok = load_yuv(chunk, self.input_hw,
-                                                   **kw)
-                parts = [ys, cbs, crs]
-            else:
-                imgs, metas, ok = load_rgb(chunk, self.input_hw, **kw)
-                parts = [imgs]
-            # one shape for every chunk
-            parts = [pad_batch(p, batch_size) for p in parts]
-            sizes = [(int(m[4]), int(m[3])) if good else None
-                     for m, good in zip(metas, ok)]
-            if retry:
-                for i in np.where(~ok)[0]:
-                    self._retry_slot_pil(chunk[i], i, parts, sizes, use_yuv)
-            if use_yuv:
-                outs = self._infer_yuv(*(self._to_device(p) for p in parts))
-            else:
-                outs = self.infer_batch(parts[0])
-            pending.append((outs, sizes))
-            if len(pending) > max(pipeline_depth, 0):
+        try:
+            for start in range(0, len(paths), batch_size):
+                chunk = paths[start:start + batch_size]
+                if use_yuv:
+                    ys, cbs, crs, metas, ok = load_yuv(chunk, self.input_hw,
+                                                       **kw)
+                    parts = [ys, cbs, crs]
+                else:
+                    imgs, metas, ok = load_rgb(chunk, self.input_hw, **kw)
+                    parts = [imgs]
+                # one shape for every chunk
+                parts = [pad_batch(p, batch_size) for p in parts]
+                sizes = [(int(m[4]), int(m[3])) if good else None
+                         for m, good in zip(metas, ok)]
+                if retry:
+                    for i in np.where(~ok)[0]:
+                        self._retry_slot_pil(chunk[i], i, parts, sizes,
+                                             use_yuv)
+                if use_yuv:
+                    outs = self._infer_yuv(*(self._to_device(p)
+                                             for p in parts))
+                else:
+                    outs = self.infer_batch(parts[0])
+                pending.append((outs, sizes))
+                if len(pending) > max(pipeline_depth, 0):
+                    self._postprocess_batch(*pending.popleft(), results)
+            while pending:
                 self._postprocess_batch(*pending.popleft(), results)
-        while pending:
-            self._postprocess_batch(*pending.popleft(), results)
+        finally:
+            if pool is not None:
+                pool.shutdown()
         return results
 
     def _retry_slot_pil(self, path, i, parts, sizes, use_yuv):

@@ -24,10 +24,11 @@ Counterpart of the decode and letterbox contract of
   the u8 canvas, in fastloader's order of float operations
   (``rgb_to_yuv420``, ``native/fastloader.cpp:209-238``).
 
-``ycc_to_rgb`` (libjpeg's chroma upsampling and YCbCr -> RGB after
-nvJPEG's IDCT: one launch an image), ``letterbox_rgb`` and
-``letterbox_yuv420`` (one launch a batch) run their plain versions on CPU
-tensors and launch their kernel on CUDA ones, counted in
+``ycc_to_rgb_batch`` (libjpeg's chroma upsampling and YCbCr -> RGB after
+nvJPEG's IDCT, for a batch of images of any sizes and layouts, gray ones
+included; :func:`ycc_to_rgb` is its one-image case), ``letterbox_rgb``
+and ``letterbox_yuv420`` take one launch a batch.  They run their plain
+versions on CPU tensors and launch their kernel on CUDA ones, counted in
 ``<wrapper>.launches``, or raise; they never fall back.  The plain
 versions repeat the kernels' integer and float32 operations one by one, so
 the two agree bit for bit.
@@ -51,7 +52,9 @@ from ..device import resolve_device
 from . import kernel_build
 
 _SOURCE = 'jpeg.cu'
-_PARAMS = 10          # int64 per image in the kernels' geometry table
+_PARAMS = 9           # int64 per image in the letterbox kernels' table
+_YCC_PARAMS = 14      # int64 per image in ycc_to_rgb_kernel's table
+LETTERBOX_BAND = 8    # canvas rows a letterbox block writes
 GRAY = 128
 
 # nvjpegStatus_t
@@ -146,12 +149,6 @@ def block_mean_plain(plane: torch.Tensor, bh: int, bw: int) -> torch.Tensor:
                      rounding_mode='floor').to(torch.uint8)
 
 
-def reduce_plain(image: torch.Tensor, d: int) -> torch.Tensor:
-    """The rounded mean of each ``d x d`` block of ``image [H, W, 3]`` u8,
-    edge blocks cut at the image: ``[ceil(H/d), ceil(W/d), 3]`` u8."""
-    return block_mean_plain(image, d, d)
-
-
 def _taps(n: int, s: int):
     """Per output index of ``n`` over ``s`` source samples: (i0, i1, frac),
     half-pixel centres clamped to the source, in float32."""
@@ -180,13 +177,12 @@ def _bilinear(src: torch.Tensor, nw: int, nh: int) -> torch.Tensor:
 
 
 def letterbox_rgb_plain(image: torch.Tensor, hw: Tuple[int, int],
-                        d: int = 1,
                         full_size: Optional[Tuple[int, int]] = None
                         ) -> torch.Tensor:
     """Plain version of the RGB letterbox kernel for one image.
 
     ``image`` holds decoded pixels ``[H, W, 3]`` (or gray ``[H, W]``) u8 on
-    the CPU; ``d`` reduces them by the ``d x d`` mean first.
+    the CPU.
     ``full_size`` is the file's ``(width, height)`` for the geometry: the
     image's own size by default, or the full size of pixels that a decoder
     already scaled (libjpeg's ``scale_denom``, PIL's ``draft``).  Returns
@@ -197,8 +193,7 @@ def letterbox_rgb_plain(image: torch.Tensor, hw: Tuple[int, int],
     _, nw, nh, px, py = geometry(fw, fh, hw)
     canvas = torch.full((*hw, 3), GRAY, dtype=torch.uint8)
     if nw > 0 and nh > 0:
-        src = reduce_plain(image, d)
-        canvas[py:py + nh, px:px + nw] = _bilinear(src, nw, nh)
+        canvas[py:py + nh, px:px + nw] = _bilinear(image, nw, nh)
     return canvas
 
 
@@ -221,12 +216,11 @@ def rgb_to_yuv420_plain(canvas: torch.Tensor):
 
 
 def letterbox_yuv420_plain(image: torch.Tensor, hw: Tuple[int, int],
-                           d: int = 1,
                            full_size: Optional[Tuple[int, int]] = None):
     """Plain version of the 4:2:0 letterbox kernel for one image:
     :func:`letterbox_rgb_plain`, then :func:`rgb_to_yuv420_plain`.  Returns
     ``(y [th, tw], cb, cr [th/2, tw/2])`` u8."""
-    return rgb_to_yuv420_plain(letterbox_rgb_plain(image, hw, d, full_size))
+    return rgb_to_yuv420_plain(letterbox_rgb_plain(image, hw, full_size))
 
 
 def scaled_chroma(hs: int, vs: int, d: int) -> Tuple[int, int, int, bool]:
@@ -309,40 +303,115 @@ def ycc_to_rgb_plain(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     return torch.stack([r, g, b], -1).clamp(0, 255).to(torch.uint8)
 
 
-def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-               factors: Tuple[int, int], d: int = 1) -> torch.Tensor:
-    """Planar YCbCr -> interleaved RGB as libjpeg decodes it, reduced by
-    ``d`` (see :func:`ycc_to_rgb_plain`): the plain version for CPU
-    tensors, one kernel launch for CUDA ones."""
-    hs, vs = factors
+def _ycc_slot(planes: Sequence[torch.Tensor], factors, d: int):
+    """Check one slot of :func:`ycc_to_rgb_batch`; returns its output shape
+    ``(ceil(h/d), ceil(w/d), channels)``."""
+    if d not in (1, 2, 4, 8):
+        raise ValueError(f'divisor must be 1, 2, 4 or 8, got {d}')
+    y = planes[0]
+    if y.dim() != 2:
+        raise ValueError(f'luma must be [h, w], got {tuple(y.shape)}')
     h, w = y.shape
+    shape = (-(-h // d), -(-w // d), 1 if factors is None else 3)
+    if factors is None:
+        if len(planes) != 1:
+            raise ValueError('a gray slot has its luma plane alone')
+        return shape
+    hs, vs = factors
+    cb, cr = planes[1:]
     ch, cw = cb.shape
     if (hs, vs) not in FACTORS.values() or tuple(cr.shape) != (ch, cw) \
             or cw != -(-w // hs) or ch != -(-h // vs):
         raise ValueError(f'planes {tuple(y.shape)}, {tuple(cb.shape)}, '
                          f'{tuple(cr.shape)} do not match subsampling '
                          f'{factors}')
-    if d not in (1, 2, 4, 8):
-        raise ValueError(f'divisor must be 1, 2, 4 or 8, got {d}')
-    if y.device.type == 'cpu':
-        return ycc_to_rgb_plain(y, cb, cr, factors, d)
-    for name, t in (('y', y), ('cb', cb), ('cr', cr)):
-        if t.device != y.device or t.dtype != torch.uint8 \
-                or not t.is_contiguous():
-            raise ValueError(f'{name} must be contiguous u8 on {y.device}')
-    out = torch.empty((-(-h // d), -(-w // d), 3), dtype=torch.uint8,
-                      device=y.device)
-    r, uh, uv, fancy = scaled_chroma(hs, vs, d)
+    return shape
+
+
+def ycc_to_rgb_batch_plain(slots) -> List[torch.Tensor]:
+    """Plain version of :func:`ycc_to_rgb_batch`: each slot by
+    :func:`ycc_to_rgb_plain`, a gray one by the d x d block mean of its
+    luma (``[ceil(h/d), ceil(w/d), 1]``)."""
+    return [block_mean_plain(planes[0], d, d)[..., None] if factors is None
+            else ycc_to_rgb_plain(*planes, factors, d)
+            for planes, factors, d in slots]
+
+
+def _packed(shapes, device) -> List[torch.Tensor]:
+    """Views of one u8 buffer on ``device``, one per shape, each starting
+    at a 16-byte boundary."""
+    sizes = [int(np.prod(s)) for s in shapes]
+    offsets = np.cumsum([0] + [-(-n // 16) * 16 for n in sizes])
+    buf = torch.empty(max(int(offsets[-1]), 1), dtype=torch.uint8,
+                      device=device)
+    return [buf[int(o):int(o) + n].view(s)
+            for o, n, s in zip(offsets, sizes, shapes)]
+
+
+def _ycc_rows(slots, outs) -> np.ndarray:
+    """``ycc_to_rgb_kernel``'s table: per slot its planes' and output's
+    pointers, sizes, divisor and :func:`scaled_chroma`'s chroma scale."""
+    rows = np.zeros((len(slots), _YCC_PARAMS), np.int64)
+    for i, ((planes, factors, d), out) in enumerate(zip(slots, outs)):
+        h, w = planes[0].shape
+        if factors is None:
+            rows[i] = (planes[0].data_ptr(), 0, 0, out.data_ptr(), w, h, 0,
+                       0, d, 1, 1, 1, 0, 1)
+            continue
+        ch, cw = planes[1].shape
+        r, uh, uv, fancy = scaled_chroma(*factors, d)
+        rows[i] = (planes[0].data_ptr(), planes[1].data_ptr(),
+                   planes[2].data_ptr(), out.data_ptr(), w, h, cw, ch, d, r,
+                   uh, uv, int(fancy), 3)
+    return rows
+
+
+def ycc_to_rgb_batch(slots) -> List[torch.Tensor]:
+    """Planar YCbCr -> interleaved RGB as libjpeg decodes it, for a batch.
+
+    ``slots`` holds ``(planes, factors, d)`` per image: ``planes`` ``(y,
+    cb, cr)`` u8 (``y [h, w]``, ``cb``/``cr`` subsampled by ``factors`` =
+    (horizontal, vertical)), or ``(y,)`` with ``factors`` None for a gray
+    image; ``d`` the divisor in {1, 2, 4, 8} (see :func:`ycc_to_rgb_plain`).
+    Returns per slot ``[ceil(h/d), ceil(w/d), 3]`` RGB (gray: ``..., 1]``,
+    its luma reduced by d) u8, views of one buffer: the plain version for
+    CPU tensors, one kernel launch for CUDA ones."""
+    shapes = [_ycc_slot(*slot) for slot in slots]
+    if not slots:
+        return []
+    device = slots[0][0][0].device
+    if device.type == 'cpu':
+        outs = _packed(shapes, device)
+        for out, got in zip(outs, ycc_to_rgb_batch_plain(slots)):
+            out.copy_(got)
+        return outs
+    for planes, _, _ in slots:
+        for t in planes:
+            if t.device != device or t.dtype != torch.uint8 \
+                    or not t.is_contiguous():
+                raise ValueError(f'planes must be contiguous u8 on '
+                                 f'{device}')
+    outs = _packed(shapes, device)
+    rows = _ycc_rows(slots, outs)
+    table = torch.from_numpy(rows).pin_memory().to(device, non_blocking=True)
     err = _library().mgd_ycc_to_rgb(
-        _index(y.device), y.data_ptr(), cb.data_ptr(), cr.data_ptr(), w, h,
-        cw, ch, d, r, uh, uv, int(fancy), out.data_ptr(),
-        torch.cuda.current_stream(y.device).cuda_stream)
+        _index(device), table.data_ptr(), len(slots),
+        max(s[1] for s in shapes), max(s[0] for s in shapes),
+        torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, 'ycc_to_rgb')
-    ycc_to_rgb.launches += 1
-    return out
+    ycc_to_rgb_batch.launches += 1
+    return outs
 
 
-ycc_to_rgb.launches = 0
+ycc_to_rgb_batch.launches = 0
+
+
+def ycc_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
+               factors: Tuple[int, int], d: int = 1) -> torch.Tensor:
+    """Planar YCbCr -> interleaved RGB as libjpeg decodes it, reduced by
+    ``d`` (see :func:`ycc_to_rgb_plain`): :func:`ycc_to_rgb_batch` for
+    one image."""
+    return ycc_to_rgb_batch([((y, cb, cr), factors, d)])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -361,34 +430,50 @@ def _check_hw(hw, even: bool) -> Tuple[int, int]:
 def _batch_metas(sources, hw, full_sizes):
     """Per slot: the metas (zeros for a missing source, as fastloader
     leaves them), ok, and the kernel's table row without the pointer.  A
-    source at its file's full size is reduced by the divisor in the
-    kernel; one already reduced by it (:func:`ycc_to_rgb`) is not."""
+    source is its file reduced by the divisor for ``hw``
+    (:func:`ycc_to_rgb_batch` reduces it), as fastloader's libjpeg
+    decodes it."""
     n = len(sources)
     metas = np.zeros((n, 5), np.float32)
     ok = np.zeros((n,), bool)
     rows = np.zeros((n, _PARAMS), np.int64)
-    rows[:, 4] = 1
     for i, src in enumerate(sources):
         if src is None:
             continue
         h, w = src.shape[:2]
         fw, fh = full_sizes[i] if full_sizes else (w, h)
         d = divisor(fw, fh, hw)
-        if (w, h) != (fw, fh):
-            if (w, h) != (-(-fw // d), -(-fh // d)):
-                raise ValueError(f'source {i} is {w}x{h}, neither its file '
-                                 f'{fw}x{fh} nor that reduced by {d}')
-            d = 1
+        if (w, h) != (-(-fw // d), -(-fh // d)):
+            raise ValueError(f'source {i} is {w}x{h}, not its file {fw}x{fh} '
+                             f'reduced by {d} (ycc_to_rgb_batch reduces it)')
         c = 1 if src.dim() == 2 else src.shape[2]
         _, nw, nh, px, py = geometry(fw, fh, hw)
         metas[i] = metas_of(fw, fh, hw)
         ok[i] = True
-        rows[i, 1:] = (w, h, c, d, nw, nh, px, py, 1)
+        rows[i, 1:] = (w, h, c, nw, nh, px, py, 1)
     return metas, ok, rows
 
 
 def _full(meta: np.ndarray) -> Tuple[int, int]:
     return int(meta[3]), int(meta[4])
+
+
+def _stage_bytes(rows: np.ndarray, tw: int, yuv: bool) -> int:
+    """Shared memory a letterbox block stages its source rows in: room for
+    the most rows that a band of ``LETTERBOX_BAND`` canvas rows touches in
+    any source of the batch, within the card's limit (a band that needs
+    more reads its taps from device memory)."""
+    lib = _library()
+    room = lib.mgd_letterbox_smem_limit() - lib.mgd_letterbox_smem(
+        int(yuv), LETTERBOX_BAND, tw, 0)
+    if room < 0:
+        raise ValueError(f'a canvas {tw} wide is too wide for the letterbox '
+                         f'kernels')
+    need = 0
+    for _, w, h, c, _, nh, _, _, ok in rows.tolist():
+        if ok and nh > 0:
+            need = max(need, (-(-LETTERBOX_BAND * h // nh) + 3) * w * c + 32)
+    return min(need, room)
 
 
 def _table(sources, rows, device) -> torch.Tensor:
@@ -415,10 +500,11 @@ def letterbox_rgb(sources: Sequence[Optional[torch.Tensor]],
 
     ``sources`` are decoded images (``[H, W, 3]`` RGB, or gray ``[H, W]`` /
     ``[H, W, 1]``) u8 on ``device``, or None for a slot that did not decode
-    (a gray canvas); ``full_sizes`` their files' ``(width, height)``, where
-    a source was already reduced by the divisor (by default each source's
-    own size).  Returns ``(canvas [N, th, tw, 3] u8 on device, metas [N, 5]
-    f32 numpy, ok [N] bool numpy)``."""
+    (a gray canvas), each its file reduced by the divisor for ``hw``
+    (:func:`ycc_to_rgb_batch` gives it so); ``full_sizes`` their files'
+    ``(width, height)`` (by default each source's own size).  Returns
+    ``(canvas [N, th, tw, 3] u8 on device, metas [N, 5] f32 numpy, ok [N]
+    bool numpy)``."""
     device = _device(device)
     th, tw = _check_hw(hw, even=False)
     metas, ok, rows = _batch_metas(sources, (th, tw), full_sizes)
@@ -426,8 +512,7 @@ def letterbox_rgb(sources: Sequence[Optional[torch.Tensor]],
         out = torch.full((len(sources), th, tw, 3), GRAY, dtype=torch.uint8)
         for i, src in enumerate(sources):
             if src is not None:
-                out[i] = letterbox_rgb_plain(src, (th, tw), int(rows[i, 4]),
-                                             _full(metas[i]))
+                out[i] = letterbox_rgb_plain(src, (th, tw), _full(metas[i]))
         return out, metas, ok
     if device.type != 'cuda':
         raise ValueError(f'letterbox_rgb runs on the CPU or CUDA, got '
@@ -438,7 +523,8 @@ def letterbox_rgb(sources: Sequence[Optional[torch.Tensor]],
         table = _table(sources, rows, device)
         err = _library().mgd_letterbox_rgb(
             _index(device), table.data_ptr(), len(sources), th, tw,
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+            LETTERBOX_BAND, _stage_bytes(rows, tw, False), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
         _raise_on(err, 'letterbox_rgb')
         letterbox_rgb.launches += 1
     return out, metas, ok
@@ -464,7 +550,7 @@ def letterbox_yuv420(sources: Sequence[Optional[torch.Tensor]],
         for i, src in enumerate(sources):
             if src is not None:
                 for p, v in zip(planes, letterbox_yuv420_plain(
-                        src, (th, tw), int(rows[i, 4]), _full(metas[i]))):
+                        src, (th, tw), _full(metas[i]))):
                     p[i] = v
         return (*planes, metas, ok)
     if device.type != 'cuda':
@@ -476,8 +562,9 @@ def letterbox_yuv420(sources: Sequence[Optional[torch.Tensor]],
     if n:
         table = _table(sources, rows, device)
         err = _library().mgd_letterbox_yuv420(
-            _index(device), table.data_ptr(), n, th, tw, y.data_ptr(),
-            cb.data_ptr(), cr.data_ptr(),
+            _index(device), table.data_ptr(), n, th, tw, LETTERBOX_BAND,
+            _stage_bytes(rows, tw, True), y.data_ptr(), cb.data_ptr(),
+            cr.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
         _raise_on(err, 'letterbox_yuv420')
         letterbox_yuv420.launches += 1
@@ -503,7 +590,10 @@ class Decoder:
     work while the next decode refilled the buffer.  So each decode runs
     on the decoder's own stream and waits for it (one image's IDCT, a
     fraction of a millisecond); its planes are allocated on that stream
-    and handed to the caller's stream with ``record_stream``."""
+    and handed to the caller's stream with ``record_stream``.  Decoders
+    on several threads (``data/jpeg_cuda.py``'s pool) overlap their
+    host-side Huffman decodes: the ctypes calls and the stream's
+    synchronize release the GIL."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -538,57 +628,54 @@ class Decoder:
         self.stream.synchronize()
         return status
 
-    def _planes(self, *shapes):
-        """Planes allocated on the decoder's stream, handed to the
-        caller's."""
-        caller = torch.cuda.current_stream(self.device)
+    def _planes(self, stream, *shapes):
+        """Planes allocated on the decoder's stream, handed to ``stream``
+        (the caller's: captured on the calling thread, since a pool's
+        worker has a current stream of its own)."""
         with torch.cuda.stream(self.stream):
             planes = [torch.empty(shape, dtype=torch.uint8,
                                   device=self.device) for shape in shapes]
         for p in planes:
-            p.record_stream(caller)
+            p.record_stream(stream)
         return planes
 
-    def decode(self, data: bytes, hw: Optional[Tuple[int, int]] = None,
-               planes_out: Optional[list] = None):
-        """Decode a JPEG for the current stream.
+    def planes(self, data: bytes, stream=None):
+        """Decode a JPEG at full size to its planes on the card, for
+        ``stream`` (by default the current one).
 
-        Returns ``(image, (width, height), None)``: ``image`` u8 on the
-        device, gray ``[H, W, 1]`` at full size, or RGB: at full size, or
-        with ``hw`` reduced by fastloader's divisor for that canvas
-        (``[ceil(H/d), ceil(W/d), 3]``); or ``(None, None, reason)`` for a
-        file the decoder rejects (not a JPEG, corrupt, unsupported,
-        neither one nor three components, a chroma layout other than
-        4:4:4, 4:2:2, 4:2:0 and 4:4:0).  A colour file is decoded to its
-        YCbCr planes and converted by :func:`ycc_to_rgb`; given a list as
-        ``planes_out``, those planes are appended to it (to hold the
-        conversion against its plain version on the same call).  Raises
-        when nvJPEG or the card fails."""
+        Returns ``(planes, factors, (width, height), None)``: ``planes``
+        ``(y, cb, cr)`` u8 at their own resolution with their chroma
+        ``factors`` (:data:`FACTORS`), or ``(y,)`` and None for a gray
+        file; or ``(None, None, None, reason)`` for a file the decoder
+        rejects (not a JPEG, corrupt, unsupported, neither one nor three
+        components, a chroma layout other than 4:4:4, 4:2:2, 4:2:0 and
+        4:4:0).  The decode is complete when this returns.  Raises when
+        nvJPEG or the card fails."""
+        if stream is None:
+            stream = torch.cuda.current_stream(self.device)
         info = self.header(data)
         if isinstance(info, int):
-            return None, None, self._rejected(info)
+            return None, None, None, self._rejected(info)
         w, h, comps, css, cw, ch = info
         if comps not in (1, 3) or w <= 0 or h <= 0:
-            return None, None, f'{comps} components, {w}x{h}'
+            return None, None, None, f'{comps} components, {w}x{h}'
         if comps == 1:
-            out, = self._planes((h, w, 1))
-            status = self._decode(data, Y, [out])
+            planes = self._planes(stream, (h, w))
+            status = self._decode(data, Y, planes)
             if status:
-                return None, None, self._rejected(status)
-            return out, (w, h), None
+                return None, None, None, self._rejected(status)
+            return tuple(planes), None, (w, h), None
         if css not in FACTORS:
-            return None, None, f'{css} chroma layout'
+            return None, None, None, f'{css} chroma layout'
         hs, vs = FACTORS[css]
         if (cw, ch) != (-(-w // hs), -(-h // vs)):
-            return None, None, f'{css} chroma planes {cw}x{ch} for {w}x{h}'
-        planes = self._planes((h, w), (ch, cw), (ch, cw))
+            return (None, None, None,
+                    f'{css} chroma planes {cw}x{ch} for {w}x{h}')
+        planes = self._planes(stream, (h, w), (ch, cw), (ch, cw))
         status = self._decode(data, YUV, planes)
         if status:
-            return None, None, self._rejected(status)
-        if planes_out is not None:
-            planes_out.extend(planes)
-        d = divisor(w, h, hw) if hw else 1
-        return ycc_to_rgb(*planes, (hs, vs), d), (w, h), None
+            return None, None, None, self._rejected(status)
+        return tuple(planes), (hs, vs), (w, h), None
 
     @staticmethod
     def _rejected(status: int) -> str:
@@ -662,31 +749,35 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f'{name}: CUDA error {err} at launch')
 
 
+def _bind(lib: ctypes.CDLL):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ip, sz = ctypes.POINTER(ctypes.c_int), ctypes.c_size_t
+    lib.mgd_jpeg_version.argtypes = []
+    lib.mgd_jpeg_version.restype = i
+    lib.mgd_jpeg_backend_status.argtypes = [i, i]
+    lib.mgd_jpeg_backend_status.restype = i
+    lib.mgd_jpeg_create.argtypes = [i, ctypes.POINTER(ctypes.c_void_p)]
+    lib.mgd_jpeg_create.restype = i
+    lib.mgd_jpeg_destroy.argtypes = [p]
+    lib.mgd_jpeg_destroy.restype = i
+    lib.mgd_jpeg_info.argtypes = [p, ctypes.c_char_p, sz, ip, ip, ip, ip,
+                                  ip, ip]
+    lib.mgd_jpeg_info.restype = i
+    lib.mgd_jpeg_decode.argtypes = [p, ctypes.c_char_p, sz, i, p, i, p, i,
+                                    p, i, p]
+    lib.mgd_jpeg_decode.restype = i
+    lib.mgd_ycc_to_rgb.argtypes = [i, p, i, i, i, p]
+    lib.mgd_ycc_to_rgb.restype = i
+    lib.mgd_letterbox_smem_limit.argtypes = []
+    lib.mgd_letterbox_smem_limit.restype = i
+    lib.mgd_letterbox_smem.argtypes = [i, i, i, i]
+    lib.mgd_letterbox_smem.restype = i
+    lib.mgd_letterbox_rgb.argtypes = [i, p, i, i, i, i, i, p, p]
+    lib.mgd_letterbox_rgb.restype = i
+    lib.mgd_letterbox_yuv420.argtypes = [i, p, i, i, i, i, i, p, p, p,
+                                         p]
+    lib.mgd_letterbox_yuv420.restype = i
+
+
 def _library() -> ctypes.CDLL:
-    lib = kernel_build.load(_SOURCE)
-    if not getattr(lib, '_mgd_bound', False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        ip, sz = ctypes.POINTER(ctypes.c_int), ctypes.c_size_t
-        lib.mgd_jpeg_version.argtypes = []
-        lib.mgd_jpeg_version.restype = i
-        lib.mgd_jpeg_backend_status.argtypes = [i, i]
-        lib.mgd_jpeg_backend_status.restype = i
-        lib.mgd_jpeg_create.argtypes = [i, ctypes.POINTER(ctypes.c_void_p)]
-        lib.mgd_jpeg_create.restype = i
-        lib.mgd_jpeg_destroy.argtypes = [p]
-        lib.mgd_jpeg_destroy.restype = i
-        lib.mgd_jpeg_info.argtypes = [p, ctypes.c_char_p, sz, ip, ip, ip, ip,
-                                      ip, ip]
-        lib.mgd_jpeg_info.restype = i
-        lib.mgd_jpeg_decode.argtypes = [p, ctypes.c_char_p, sz, i, p, i, p, i,
-                                        p, i, p]
-        lib.mgd_jpeg_decode.restype = i
-        lib.mgd_ycc_to_rgb.argtypes = [i, p, p, p, i, i, i, i, i, i, i, i,
-                                       i, p, p]
-        lib.mgd_ycc_to_rgb.restype = i
-        lib.mgd_letterbox_rgb.argtypes = [i, p, i, i, i, p, p]
-        lib.mgd_letterbox_rgb.restype = i
-        lib.mgd_letterbox_yuv420.argtypes = [i, p, i, i, i, p, p, p, p]
-        lib.mgd_letterbox_yuv420.restype = i
-        lib._mgd_bound = True
-    return lib
+    return kernel_build.load(_SOURCE, _bind)

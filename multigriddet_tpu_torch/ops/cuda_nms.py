@@ -274,18 +274,18 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f'{name}: CUDA error {err} at launch')
 
 
+def _bind(lib: ctypes.CDLL):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mgd_popmax_capacity.argtypes = [i]
+    lib.mgd_popmax_capacity.restype = i
+    lib.mgd_greedy_capacity.argtypes = []
+    lib.mgd_greedy_capacity.restype = i
+    lib.mgd_popmax_nms.argtypes = [p, p, p, i, i, f, f, i, i, i,
+                                   p, p, p, p, p]
+    lib.mgd_popmax_nms.restype = i
+    lib.mgd_greedy_nms.argtypes = [p, p, i, i, f, i, i, p, p, p]
+    lib.mgd_greedy_nms.restype = i
+
+
 def _library() -> ctypes.CDLL:
-    lib = kernel_build.load(_SOURCE)
-    if not getattr(lib, '_mgd_bound', False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mgd_popmax_capacity.argtypes = [i]
-        lib.mgd_popmax_capacity.restype = i
-        lib.mgd_greedy_capacity.argtypes = []
-        lib.mgd_greedy_capacity.restype = i
-        lib.mgd_popmax_nms.argtypes = [p, p, p, i, i, f, f, i, i, i,
-                                       p, p, p, p, p]
-        lib.mgd_popmax_nms.restype = i
-        lib.mgd_greedy_nms.argtypes = [p, p, i, i, f, i, i, p, p, p]
-        lib.mgd_greedy_nms.restype = i
-        lib._mgd_bound = True
-    return lib
+    return kernel_build.load(_SOURCE, _bind)

@@ -8,7 +8,9 @@ source, the flags and the source's link flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  A source that links a
 CUDA library (``jpeg.cu``: nvJPEG) names the headers and libraries it
 needs; where one is missing, the build raises and names the path.  Nothing
-is built when a module is imported.
+is built when a module is imported.  Threads that ask for a library at once
+(a loader's decoder threads at their first batch) wait for one build under
+a lock.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'csrc')
@@ -41,6 +44,7 @@ LINKS: Dict[str, Tuple[List[str], List[str], List[str]]] = {
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -91,7 +95,7 @@ def build(source: str) -> dict:
     nvcc = nvcc_path()
     link = link_flags(source, os.path.dirname(os.path.dirname(nvcc)))
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{out}.{os.getpid()}.tmp'
+    tmp = f'{out}.{os.getpid()}.{threading.get_ident()}.tmp'
     cmd = [nvcc, *NVCC_FLAGS, '-o', tmp, os.path.join(CSRC_DIR, source),
            *link]
     t0 = time.perf_counter()
@@ -106,8 +110,20 @@ def build(source: str) -> dict:
     return {'path': out, 'seconds': seconds, 'log': log}
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, built first if needed."""
-    if source not in _LOADED:
-        _LOADED[source] = ctypes.CDLL(build(source)['path'])
-    return _LOADED[source]
+def load(source: str,
+         bind: Optional[Callable[[ctypes.CDLL], None]] = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built first if needed.
+
+    ``bind`` (given the library) sets its functions' ctypes signatures; it
+    runs once, before any caller gets the library.  The first call builds
+    and loads under a lock, so concurrent first calls run ``nvcc`` once."""
+    lib = _LOADED.get(source)
+    if lib is None:
+        with _LOAD_LOCK:
+            lib = _LOADED.get(source)
+            if lib is None:
+                lib = ctypes.CDLL(build(source)['path'])
+                if bind is not None:
+                    bind(lib)
+                _LOADED[source] = lib
+    return lib

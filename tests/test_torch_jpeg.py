@@ -107,7 +107,7 @@ def test_plain_on_libjpeg_pixels_equals_fastloader(name, hw):
     scaled = pil_pixels(path, hw)
     d = cuda_jpeg.divisor(fw, fh, hw)
     assert tuple(scaled.shape[:2]) == (-(-fh // d), -(-fw // d))
-    rgb = cuda_jpeg.letterbox_rgb_plain(scaled, hw, 1, full_size=(fw, fh))
+    rgb = cuda_jpeg.letterbox_rgb_plain(scaled, hw, full_size=(fw, fh))
     assert_within_one(rgb.numpy(), want_rgb, 'rgb')
     _, nw, nh, px, py = cuda_jpeg.geometry(fw, fh, hw)
     inside = np.zeros(hw, bool)
@@ -115,7 +115,7 @@ def test_plain_on_libjpeg_pixels_equals_fastloader(name, hw):
     assert (rgb.numpy()[~inside] == 128).all()
     assert (want_rgb[~inside] == 128).all()
     for got, want, plane in zip(
-            cuda_jpeg.letterbox_yuv420_plain(scaled, hw, 1, (fw, fh)),
+            cuda_jpeg.letterbox_yuv420_plain(scaled, hw, (fw, fh)),
             want_yuv, ('y', 'cb', 'cr')):
         assert_within_one(got.numpy(), want, plane)
 
@@ -128,16 +128,18 @@ def test_full_decode_with_block_mean_within_bound(name, hw):
     path = fixture_path(name)
     want_rgb, _, want_meta, _ = jax_canvases(path, hw)
     full = pil_pixels(path)
-    canvas, metas, ok = cuda_jpeg.letterbox_rgb([full], hw, 'cpu')
+    fh, fw = full.shape[:2]
+    d = cuda_jpeg.divisor(fw, fh, hw)
+    canvas, metas, ok = cuda_jpeg.letterbox_rgb(
+        [cuda_jpeg.block_mean_plain(full, d, d)], hw, 'cpu', [(fw, fh)])
     assert ok.tolist() == [True]
     assert np.array_equal(metas[0], want_meta)
-    fh, fw = full.shape[:2]
     _, nw, nh, px, py = cuda_jpeg.geometry(fw, fh, hw)
     diff = np.abs(canvas[0].numpy().astype(np.int32)
                   - want_rgb.astype(np.int32))
     assert diff.mean() < MEAN_BOUND
     assert diff[py:py + nh, px:px + nw].mean() < MEAN_BOUND
-    if cuda_jpeg.divisor(fw, fh, hw) == 1:     # same pixels: the resize alone
+    if d == 1:     # same pixels: the resize alone
         assert_within_one(canvas[0].numpy(), want_rgb, 'rgb at d = 1')
 
 
@@ -283,8 +285,12 @@ def test_reduced_444_decode_within_bound(hw):
     diff = np.abs(canvas[0].numpy().astype(np.int32)
                   - want_rgb.astype(np.int32))
     assert diff.mean() < MEAN_BOUND
-    with pytest.raises(ValueError, match='neither'):
+    with pytest.raises(ValueError, match='not its file'):
         cuda_jpeg.letterbox_rgb([reduced[1:]], hw, 'cpu', [(w, h)])
+    full = cuda_jpeg.ycc_to_rgb(*(torch.from_numpy(ycc[..., k].copy())
+                                  for k in range(3)), (1, 1))
+    with pytest.raises(ValueError, match='not its file'):
+        cuda_jpeg.letterbox_rgb([full], hw, 'cpu', [(w, h)])
 
 
 @pytest.mark.parametrize('name', ('photo_444.jpg', 'photo_420_q90.jpg',
@@ -317,7 +323,7 @@ def test_block_mean_cuts_edge_blocks():
     pixels that exist (libjpeg's ceil(w / d) output), rounded."""
     img = torch.arange(5 * 7 * 3, dtype=torch.int32).reshape(5, 7, 3)
     img = (img * 37 % 256).to(torch.uint8)
-    red = cuda_jpeg.reduce_plain(img, 4)
+    red = cuda_jpeg.block_mean_plain(img, 4, 4)
     assert tuple(red.shape) == (2, 2, 3)
     block = img[4:5, 4:7].to(torch.int32)
     want = (block.sum((0, 1)) + block.shape[0] * block.shape[1] // 2) \
@@ -410,9 +416,10 @@ def test_host_loader_metas():
 
 def test_card_loader_sends_every_path_to_the_decoder(monkeypatch, tmp_path):
     """On a CUDA device every path of a batch, JPEG or not, goes to the
-    card's decoder, and Pillow sees only the slots it rejected.  Here the
-    loader is told it is on the card and its decoder is fastloader on the
-    CPU, which rejects a PNG as nvJPEG does."""
+    card's decoder on the loader's ``num_workers`` threads (the loader's
+    own pool), and Pillow sees only the slots it rejected.  Here
+    the loader is told it is on the card and its decoder is fastloader on
+    the CPU, which rejects a PNG as nvJPEG does."""
     from multigriddet_tpu_torch.data import jpeg_cuda, native
     png = tmp_path / 'not_a_jpeg.png'
     with open(fixture_path('png_named.jpg'), 'rb') as f:
@@ -420,15 +427,17 @@ def test_card_loader_sends_every_path_to_the_decoder(monkeypatch, tmp_path):
     paths = [fixture_path('photo_420_q90.jpg'), str(png),
              fixture_path('odd_97x61.jpg'), fixture_path('corrupt.jpg')]
     lines = [f'{p} 2,2,30,30,1' for p in paths]
-    decoded, retried = [], []
+    decoded, retried, pools = [], [], []
 
-    def decode(batch, hw, device):
+    def decode(batch, hw, device, pool):
+        assert pool._max_workers == loader.num_workers == 3
         decoded.append(list(batch))
+        pools.append(pool)
         images, metas, ok = native.load_letterbox_batch(batch, hw)
         return torch.from_numpy(images), metas, ok
 
     monkeypatch.setattr(jpeg_cuda, 'load_letterbox_batch_cuda', decode)
-    loader = HostImageLoader(lines, (64, 64), max_boxes=2, num_workers=1)
+    loader = HostImageLoader(lines, (64, 64), max_boxes=2, num_workers=3)
     loader.on_card = True
     pil = loader._load_batch_pil
     monkeypatch.setattr(loader, '_load_batch_pil',
@@ -439,6 +448,7 @@ def test_card_loader_sends_every_path_to_the_decoder(monkeypatch, tmp_path):
     finally:
         loader.close()
     assert decoded == [paths, paths[::2]]
+    assert pools[0] is pools[1] is loader.pool
     assert retried == [lines[1], lines[3]]
     assert ok.tolist() == [True, True, True, False]
     assert isinstance(images, torch.Tensor)
@@ -552,8 +562,11 @@ def test_truncated_route_equals_fastloader(index):
     hw, rgb, metas, _ = truncated_ref()[index]
     with open(fixture_path(TRUNCATED), 'rb') as f:
         data = f.read()
-    image, size = jpeg_cuda.decode_libjpeg(data, 'cpu', hw)
-    assert size == (640, 480)
+    planes, factors, size = jpeg_cuda.libjpeg_planes(data)
+    assert size == (640, 480) and factors == (1, 1)
+    image = cuda_jpeg.ycc_to_rgb(
+        *(torch.from_numpy(p) for p in planes), factors,
+        cuda_jpeg.divisor(*size, hw))
     canvas, got_metas, ok = cuda_jpeg.letterbox_rgb([image], hw, 'cpu',
                                                     [size])
     assert ok.tolist() == [True] and np.array_equal(got_metas[0], metas)
@@ -573,7 +586,8 @@ def test_truncated_route_equals_fastloader(index):
 
 class _FillingDecoder:
     """Stands in for nvJPEG, which accepts a truncated file and fills its
-    missing part with other pixels (here: Pillow's black)."""
+    missing part with other pixels (here: Pillow's black), and gives a
+    file's YCbCr planes (here Pillow's, upsampled: factors (1, 1))."""
 
     def __init__(self):
         self.seen = {}          # decodes kept for when Pillow is hidden
@@ -584,20 +598,28 @@ class _FillingDecoder:
     def __exit__(self, *exc):
         return False
 
-    def decode(self, data, hw=None, planes_out=None):
+    def planes(self, data, stream=None):
         import io
         if data not in self.seen:
             from PIL import Image, ImageFile
             ImageFile.LOAD_TRUNCATED_IMAGES = True
             try:
                 with Image.open(io.BytesIO(data)) as im:
-                    self.seen[data] = np.array(im.convert('RGB'))
+                    im.draft('YCbCr', im.size)
+                    ycc = np.array(im)
             finally:
                 ImageFile.LOAD_TRUNCATED_IMAGES = False
-        arr = self.seen[data]
-        d = cuda_jpeg.divisor(arr.shape[1], arr.shape[0], hw) if hw else 1
-        return (cuda_jpeg.reduce_plain(torch.from_numpy(arr), d),
-                (arr.shape[1], arr.shape[0]), None)
+            self.seen[data] = tuple(torch.from_numpy(ycc[..., c].copy())
+                                    for c in range(3))
+        planes = self.seen[data]
+        h, w = planes[0].shape
+        return planes, (1, 1), (w, h), None
+
+    def decode(self, data, hw):
+        """The image ``decode_files`` makes of the planes."""
+        planes, factors, (w, h), _ = self.planes(data)
+        return cuda_jpeg.ycc_to_rgb(*planes, factors,
+                                    cuda_jpeg.divisor(w, h, hw))
 
 
 def test_card_decode_routes_a_truncated_file_through_libjpeg(monkeypatch,
@@ -620,7 +642,7 @@ def test_card_decode_routes_a_truncated_file_through_libjpeg(monkeypatch,
     canvas, _, ok = cuda_jpeg.letterbox_rgb(images, hw, 'cpu', sizes)
     assert ok.tolist() == [True, True]
     np.testing.assert_array_equal(canvas[0].numpy(), rgb)
-    intact = fake.decode(open(paths[1], 'rb').read(), hw)[0]
+    intact = fake.decode(open(paths[1], 'rb').read(), hw)
     assert torch.equal(images[1], intact)
     fake.decode(open(paths[0], 'rb').read(), hw)
     hide_pil(monkeypatch)
@@ -826,11 +848,11 @@ def test_ycc_kernel_equals_plain(cuda_device, layout, size, d):
     planes = [torch.from_numpy(rng.randint(0, 256, shape).astype(np.uint8))
               for shape in ((h, w), (-(-h // vs), -(-w // hs)),
                             (-(-h // vs), -(-w // hs)))]
-    before = cuda_jpeg.ycc_to_rgb.launches
+    before = cuda_jpeg.ycc_to_rgb_batch.launches
     got = cuda_jpeg.ycc_to_rgb(*(p.to(cuda_device) for p in planes),
                                (hs, vs), d)
     torch.cuda.synchronize()
-    assert cuda_jpeg.ycc_to_rgb.launches == before + 1
+    assert cuda_jpeg.ycc_to_rgb_batch.launches == before + 1
     assert torch.equal(got.cpu(), cuda_jpeg.ycc_to_rgb_plain(*planes,
                                                              (hs, vs), d))
 
