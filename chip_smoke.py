@@ -1525,17 +1525,56 @@ def count_ops(fn):
     return count[0]
 
 
+# kernel groups of ``profile_calls``, by substrings of a kernel's name
+_GROUPS = (
+    ('nms', ('popmax', 'greedy')),
+    ('conv', ('conv', 'cudnn', 'gemm', 'xmma', 'cutlass', 'sm90_',
+              'implicit')),
+    ('elementwise', ('elementwise', 'vectorized', 'unrolled', 'reduce',
+                     'cat', 'upsample', 'copy', 'index', 'sort', 'softmax')),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, keys in _GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return 'other'
+
+
+def _union_us(intervals):
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def device_work(events):
+    """The profiler's CUDA events less user annotations: a
+    ``record_function`` range is also marked on the device's timeline,
+    from its first kernel to its last, and is no device work."""
+    import torch
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def profile_calls(fn, calls, name='window'):
     """``calls`` calls of ``fn`` under ``torch.profiler`` (``utils.profiling
     .trace``, its Chrome trace written to ``build/traces/<name>``): CUDA
-    kernels a call, device ms a call by kernel group (``profile_serve``'s
-    groups), the device's busy share of the wall time, and the host side:
+    kernels a call, device ms a call by kernel group (``_GROUPS``), the
+    device's busy share of the wall time, and the host side:
     top-level host ops a call, the host ms inside them, and the costliest
     of them by name (count and ms a call).  None where the profiler
     records no kernel (on the CPU, or if its tracing is unavailable)."""
     from collections import defaultdict
     import torch
-    from multigriddet_tpu_torch.profile_serve import _group, _union_us
     from multigriddet_tpu_torch.utils.profiling import trace
     with trace(os.path.join(REPO, 'build', 'traces', name)) as prof:
         t0 = time.perf_counter()
@@ -1545,8 +1584,7 @@ def profile_calls(fn, calls, name='window'):
             torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_work(events)
     if not kernels:
         return None
     by_group, by_name = defaultdict(float), defaultdict(float)
@@ -2950,15 +2988,14 @@ def device_busy(fn):
     trace file): (wall seconds, the share of them some kernel ran; NaN
     where the profiler records no kernel)."""
     import torch
-    from multigriddet_tpu_torch.profile_serve import _union_us
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [(e.time_range.start, e.time_range.end)
+               for e in device_work(prof.events())]
     busy = (_union_us(kernels) / (seconds * 1e6) if kernels
             else float('nan'))
     return seconds, busy

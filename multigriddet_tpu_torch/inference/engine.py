@@ -30,6 +30,7 @@ from ..data.annotations import letterbox_image, pad_batch, pil_available
 from ..device import resolve_device
 from ..ops.geometry import canvas_boxes_to_image
 from ..training.steps import fetch_detections, make_infer_step
+from ..utils.profiling import span
 from ..utils.visualization import draw_boxes, get_colors
 
 _IMG_EXTS = ('.jpg', '.jpeg', '.png', '.bmp', '.webp')
@@ -128,7 +129,10 @@ class MultiGridInference:
         """Run the fused step on one ``[B, H, W, 3]`` uint8 batch (numpy or
         tensor).  Returns the device tuple ``(boxes, classes, scores,
         valid)`` without waiting for it; boxes are canvas pixels."""
-        return self._infer(self._to_device(batch))
+        with span('infer.upload'):
+            x = self._to_device(batch)
+        with span('infer.step'):
+            return self._infer(x)
 
     def detect(self, image):
         """Detect on one PIL image.

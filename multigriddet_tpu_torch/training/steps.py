@@ -42,6 +42,7 @@ from ..ops.yuv import yuv420_to_rgb
 from ..parallel import spatial
 from ..parallel.distributed import all_sum_metrics
 from ..parallel.mesh import spatial_space
+from ..utils.profiling import span
 
 
 class _OnDevice:
@@ -99,20 +100,24 @@ def _build_train_core(anchors, num_classes, loss_cfg=LossConfig(),
         model, opt = state.model, state.optimizer
         anc, cw = consts(images.device)
         with spatial.partitioned(space, images.shape[1]):
-            outs = train_forward(model, spatial.band_of(images, space),
-                                 freeze_level)
-            total, metrics = multigrid_loss(
-                outs, list(y_true), anc, num_classes,
-                tuple(images.shape[1:3]), loss_cfg, cw, strides=strides)
-            opt.zero_grad()
-            total.backward()
-        opt.step()
-        if ema_decay is not None and state.ema_params is not None:
-            ema_update(state.ema_params, model, ema_decay)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics['loss'] = total.detach()
-        return state, all_sum_metrics(metrics)
+            with span('train.forward'):
+                outs = train_forward(model, spatial.band_of(images, space),
+                                     freeze_level)
+            with span('train.loss'):
+                total, metrics = multigrid_loss(
+                    outs, list(y_true), anc, num_classes,
+                    tuple(images.shape[1:3]), loss_cfg, cw, strides=strides)
+            with span('train.backward'):
+                opt.zero_grad()
+                total.backward()
+        with span('train.update'):
+            opt.step()
+            if ema_decay is not None and state.ema_params is not None:
+                ema_update(state.ema_params, model, ema_decay)
+            state.step += 1
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics['loss'] = total.detach()
+            return state, all_sum_metrics(metrics)
 
     return step
 
@@ -174,18 +179,20 @@ def make_fused_train_step(anchors: Sequence[np.ndarray], num_classes: int,
         if not isinstance(parts, (tuple, list)):
             parts = (parts,)
         hw = tuple(int(s) for s in parts[0].shape[1:3])
-        images, y_true, _ = _device_stage(
-            parts, boxes, generator, aug_cfg, anchors, num_classes, hw,
-            train_aug, multi_anchor_assign)
+        with span('train.stage'):
+            images, y_true, _ = _device_stage(
+                parts, boxes, generator, aug_cfg, anchors, num_classes, hw,
+                train_aug, multi_anchor_assign)
         return core(state, images, y_true)
 
     def bank_step(state, banks, idx, boxes, generator=None):
         if not isinstance(banks, (tuple, list)):
             banks = (banks,)
         hw = tuple(int(s) for s in banks[0].shape[1:3])
-        images, y_true, _ = _device_stage_bank(
-            banks, idx, boxes, generator, aug_cfg, anchors, num_classes, hw,
-            train_aug, multi_anchor_assign)
+        with span('train.stage'):
+            images, y_true, _ = _device_stage_bank(
+                banks, idx, boxes, generator, aug_cfg, anchors, num_classes,
+                hw, train_aug, multi_anchor_assign)
         return core(state, images, y_true)
 
     return host_step, bank_step
@@ -338,7 +345,8 @@ def unpack_detections(packed):
 
 def fetch_detections(outs):
     """One host fetch of an infer-step result, tuple or packed."""
-    if isinstance(outs, (tuple, list)):
-        b, c, s, v = (t.cpu().numpy() for t in outs)
-        return (b, c.astype(np.int32, copy=False), s, v.astype(bool))
-    return unpack_detections(outs)
+    with span('infer.fetch'):
+        if isinstance(outs, (tuple, list)):
+            b, c, s, v = (t.cpu().numpy() for t in outs)
+            return (b, c.astype(np.int32, copy=False), s, v.astype(bool))
+        return unpack_detections(outs)

@@ -4,6 +4,9 @@ Counterpart of ``multigriddet_tpu/utils/profiling.py``:
 
 * :func:`trace`: a ``torch.profiler`` capture of CPU and CUDA activity,
   written as a Chrome / Perfetto trace (``trace.json``) into a directory;
+* :func:`span`: a named range of the program's host work, on the
+  profiler's clock while a profiler runs and nothing otherwise, with
+  :func:`span_totals` its count and host seconds by name;
 * :class:`PhaseTimer`: accumulating named wall-clock phase timers;
 * :func:`timed_op`: the time of one call of a function, with CUDA events
   on the card and the wall clock on the CPU, and optionally its share of
@@ -17,7 +20,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -29,6 +32,58 @@ PEAK_BF16_FLOPS: Dict[str, float] = {
 
 _NULL_WALL: Dict[int, float] = {}
 
+# [count, host seconds] of each span by name, taken while a profiler runs
+_SPAN_TOTALS: Dict[str, List[float]] = {}
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """An open span: a profiler range of function scope, timed on the
+    host clock into :data:`_SPAN_TOTALS`."""
+
+    __slots__ = ('name', 'range', 't0')
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = torch._C._profiler._RecordFunctionFast(name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        total = _SPAN_TOTALS.setdefault(self.name, [0, 0.0])
+        total[0] += 1
+        total[1] += dt
+
+
+def span(name: str):
+    """``with span(name):`` marks the enclosed host work as ``name``.
+
+    While a ``torch.profiler`` capture runs, the span is a range on the
+    profiler's clock, among the CPU operations and the CUDA runtime calls
+    of its thread, so a trace can put each idle gap of the device down to
+    the span the host was in; its count and host seconds also go to
+    :func:`span_totals`.  The range has function scope, as the ranges
+    torch's compiled code opens: ``record_function``'s user scope would
+    also mark each span on the device's timeline, from its first kernel
+    to its last, where readers of device events count it as device work.
+    With no profiler running the span costs one check."""
+    if torch.autograd._profiler_enabled():
+        return _Span(name)
+    return _OFF
+
+
+def span_totals(reset: bool = False) -> Dict[str, List[float]]:
+    """``{name: [count, host seconds]}`` of the spans closed while a
+    profiler ran, since the process started or the last ``reset``."""
+    out = {k: list(v) for k, v in _SPAN_TOTALS.items()}
+    if reset:
+        _SPAN_TOTALS.clear()
+    return out
+
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str]):
@@ -37,10 +92,12 @@ def trace(log_dir: Optional[str]):
 
     Yields the profiler (``None`` for no ``log_dir``), so a caller can
     also read its events.  The card is synchronized before the capture
-    ends, so queued kernels are in it."""
+    ends, so queued kernels are in it.  :func:`span_totals` starts anew
+    with the capture."""
     if not log_dir:
         yield None
         return
+    span_totals(reset=True)
     cuda = torch.cuda.is_available()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
